@@ -28,7 +28,8 @@ BUILD_DIR = os.environ.get(
     os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build"))
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
-LAUNCHES = {"packed_attention": 0, "roi_align_windowed": 0}
+LAUNCHES = {"packed_attention": 0, "roi_align_windowed": 0, "quantize_rows": 0,
+            "quant_int8_matmul": 0, "window_attention": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -93,6 +94,13 @@ def library() -> ctypes.CDLL:
             lib.macaque_roi_align_windowed.argtypes = [
                 p, p, p, p, p, p, p, i, i, i, i, i, p]
             lib.macaque_roi_align_windowed.restype = i
+            lib.macaque_quantize_rows.argtypes = [p, p, p, i, i, p]
+            lib.macaque_quantize_rows.restype = i
+            lib.macaque_quant_int8_matmul.argtypes = [p, p, p, p, p, i, i, i, p]
+            lib.macaque_quant_int8_matmul.restype = i
+            lib.macaque_window_attention.argtypes = [
+                p, p, p, p, i, i, i, i, i, f, i, i, p]
+            lib.macaque_window_attention.restype = i
             _lib = lib
     return _lib
 

@@ -1,4 +1,5 @@
-"""Multi-head attention on the packed qkv activation (the ViTPose blocks).
+"""Multi-head attention on packed qkv activations: the ViTPose blocks and the
+Swin windows.
 
 ``packed_attention`` computes softmax(Q K^T / sqrt(d)) V straight from the
 qkv Dense output (B, N, 3C) and writes (B, N, C), the layout the output
@@ -6,6 +7,11 @@ projection reads. On a CUDA tensor it launches the hand-written kernel in
 ``csrc/packed_attention.cu`` (bf16, N = 192, d = 80: the ViTPose-huge
 shapes) or raises; on a CPU tensor it runs ``packed_attention_reference``.
 It replaces ``macaque_tpu/nn/pallas_attention.py::fused_attention_packed``.
+
+``window_attention`` is the Swin window attention of the same file's
+``fused_window_attention`` and ``fused_window_attention_blocked``: on a CUDA
+tensor the kernel in ``csrc/window_attention.cu`` (49 tokens, d = 32: the
+Swin-S shapes), on a CPU tensor ``window_attention_reference``.
 """
 
 from __future__ import annotations
@@ -61,4 +67,80 @@ def packed_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
         B, N, heads, D, float(D ** -0.5), kernels.current_stream(qkv.device))
     kernels.check(err, "packed_attention")
     kernels.LAUNCHES["packed_attention"] += 1
+    return out
+
+
+def window_attention_reference(qkv, bias, mask, heads: int,
+                               blocked: bool = True) -> torch.Tensor:
+    """Plain version of the window kernel: qkv (B_, T, 3C), bias (heads, T, T)
+    f32, mask (nW, T, T) f32 or None, window w masked by ``mask[w % nW]`` ->
+    (B_, T, C) in qkv's dtype. ``S = (Q K^T) * scale + bias + mask`` (the
+    scale applied after the dot) and the softmax in (at least) f32; with
+    ``blocked`` the probabilities are rounded to the input dtype before
+    P V (``fused_window_attention_blocked``), without it they stay f32
+    (``fused_window_attention``)."""
+    B_, T, C3 = qkv.shape
+    C = C3 // 3
+    D = C // heads
+    acc = acc_dtype(qkv.dtype)
+    q, k, v = qkv.reshape(B_, T, 3, heads, D).to(acc).permute(2, 0, 3, 1, 4)
+    s = (q @ k.transpose(-1, -2)) * (D ** -0.5) + bias.to(acc)
+    if mask is not None:
+        nW = mask.shape[0]
+        s = (s.reshape(B_ // nW, nW, heads, T, T)
+             + mask.to(acc)[None, :, None]).reshape(B_, heads, T, T)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = p / p.sum(-1, keepdim=True)
+    if blocked:
+        p = p.to(qkv.dtype).to(acc)
+    out = p @ v                                   # (B_, heads, T, D)
+    return out.transpose(1, 2).reshape(B_, T, C).to(qkv.dtype)
+
+
+_WINDOW_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def window_attention(qkv, bias, mask, heads: int,
+                     blocked: bool = True) -> torch.Tensor:
+    """(B_, T, 3C) -> (B_, T, C) Swin window attention; the kernel on CUDA
+    (float32 or bfloat16, T = 49, d = 32), the plain version on the CPU."""
+    if qkv.device.type == "cpu":
+        return window_attention_reference(qkv, bias, mask, heads, blocked)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"window_attention: unsupported device {qkv.device}")
+    if qkv.dim() != 3 or qkv.shape[-1] % (3 * heads):
+        raise ValueError(f"window_attention: bad qkv shape {tuple(qkv.shape)}"
+                         f" for {heads} heads")
+    B_, T, C3 = qkv.shape
+    D = C3 // 3 // heads
+    if qkv.dtype not in _WINDOW_DTYPES:
+        raise TypeError(f"window_attention: kernel takes float32 or bfloat16, "
+                        f"got {qkv.dtype}")
+    if (T, D) != (49, 32):
+        raise ValueError(f"window_attention: kernel built for T=49, d=32; "
+                         f"got T={T}, d={D}")
+    if not qkv.is_contiguous():
+        raise ValueError("window_attention: qkv must be contiguous")
+    if (bias.dtype != torch.float32 or tuple(bias.shape) != (heads, T, T)
+            or not bias.is_contiguous() or bias.device != qkv.device):
+        raise ValueError(f"window_attention: bias must be contiguous float32 "
+                         f"({heads}, {T}, {T}) on {qkv.device}")
+    n_mask = 0
+    if mask is not None:
+        n_mask = mask.shape[0]
+        if (mask.dtype != torch.float32 or tuple(mask.shape) != (n_mask, T, T)
+                or not mask.is_contiguous() or mask.device != qkv.device
+                or B_ % n_mask):
+            raise ValueError(f"window_attention: mask must be contiguous "
+                             f"float32 (nW, {T}, {T}) with nW dividing {B_}")
+    out = torch.empty((B_, T, C3 // 3), dtype=qkv.dtype, device=qkv.device)
+    if B_:
+        err = kernels.library().macaque_window_attention(
+            ctypes.c_void_p(qkv.data_ptr()), ctypes.c_void_p(bias.data_ptr()),
+            ctypes.c_void_p(mask.data_ptr() if mask is not None else 0),
+            ctypes.c_void_p(out.data_ptr()), B_, T, heads, D, n_mask,
+            float(D ** -0.5), int(blocked), _WINDOW_DTYPES[qkv.dtype],
+            kernels.current_stream(qkv.device))
+        kernels.check(err, "window_attention")
+        kernels.LAUNCHES["window_attention"] += 1
     return out

@@ -3,7 +3,9 @@
 Each ``*_from_jax`` turns a Flax variable tree of ``macaque_tpu.nn`` (as
 numpy-convertible arrays) into a ``state_dict`` of this package's model,
 inverting the layout changes of ``macaque_tpu/nn/convert.py``:
-  * Dense kernel (in, out) -> Linear weight (out, in);
+  * Dense kernel (in, out) -> Linear weight (out, in); an int8 Dense
+    subtree {kernel_q (in, out), wscale, bias} (``quantize_vitpose_params``,
+    ``quantize_swin_params``) -> Int8Linear weight_q (out, in), wscale, bias;
   * Conv kernel (kh, kw, in, out) -> Conv2d weight (out, in, kh, kw);
   * ConvTranspose kernel (kh, kw, in, out), spatially flipped ->
     ConvTranspose2d weight (in, out, kh, kw);
@@ -23,6 +25,13 @@ def _t(a) -> torch.Tensor:
 
 
 def _linear(sd, key, p):
+    if "kernel_q" in p:
+        sd[f"{key}.weight_q"] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(p["kernel_q"], np.int8).T))
+        sd[f"{key}.wscale"] = _t(p["wscale"])
+        if "bias" in p:
+            sd[f"{key}.bias"] = _t(p["bias"])
+        return
     sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).T)
     if "bias" in p:
         sd[f"{key}.bias"] = _t(p["bias"])

@@ -6,8 +6,11 @@ backbone): patch 4 with patch norm, embed 96, depths (2, 2, 18, 2), heads
 odd blocks, MLP ratio 4, per-stage output norms, outputs at all 4 stages.
 Module names follow mmdet's SwinTransformer
 (``stages.2.blocks.5.attn.w_msa.qkv``); tensors are channels-last. The
-window attention is plain PyTorch, as the JAX package's default path is
-plain XLA (its Pallas window attention is opt-in).
+window attention is plain PyTorch by default, as the JAX package's default
+path is plain XLA; ``SwinConfig(use_pallas_attention=True)`` runs
+``nn/attention.py::window_attention`` instead (the CUDA kernel on the card),
+as the JAX switch runs its Pallas kernel. ``SwinConfig(quantize="int8")``
+builds the block Dense layers as ``nn/quant.py::Int8Linear``.
 """
 
 from __future__ import annotations
@@ -20,7 +23,9 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from macaque_tpu_torch.nn.attention import window_attention
 from macaque_tpu_torch.nn.layers import Conv2d, FusedLayerNorm, Linear, gelu
+from macaque_tpu_torch.nn.quant import Int8Linear
 
 
 @dataclass(frozen=True)
@@ -33,6 +38,10 @@ class SwinConfig:
     patch_size: int = 4
     ln_eps: float = 1e-5
     compute_dtype: Any = torch.float32
+    use_pallas_attention: bool = False  # the window attention kernel
+    # "int8": the block Dense layers (qkv/proj/fc1/fc2) as Int8Linear; load
+    # quantized weights, or quantize a float model with quantize_swin_
+    quantize: Any = None
 
     @property
     def out_channels(self) -> Tuple[int, ...]:
@@ -73,13 +82,20 @@ def _window_merge(x, w, B, H, W):
     return x.permute(0, 1, 3, 2, 4, 5).reshape(B, H, W, C)
 
 
+def _dense(cfg: SwinConfig, cin: int, cout: int, device=None):
+    """Block Dense layer, switchable to the int8 serving layer."""
+    if cfg.quantize == "int8":
+        return Int8Linear(cin, cout, device=device)
+    return Linear(cin, cout, device=device, dtype=cfg.compute_dtype)
+
+
 class WindowMSA(nn.Module):
     def __init__(self, cfg: SwinConfig, dim: int, heads: int, device=None):
         super().__init__()
-        kw = dict(device=device, dtype=cfg.compute_dtype)
         self.heads = heads
-        self.qkv = Linear(dim, 3 * dim, **kw)
-        self.proj = Linear(dim, dim, **kw)
+        self.use_kernel = cfg.use_pallas_attention
+        self.qkv = _dense(cfg, dim, 3 * dim, device)
+        self.proj = _dense(cfg, dim, dim, device)
         self.relative_position_bias_table = nn.Parameter(nn.init.trunc_normal_(
             torch.empty((2 * cfg.window - 1) ** 2, heads, device=device),
             std=0.02))
@@ -92,11 +108,15 @@ class WindowMSA(nn.Module):
         """x (B_, N, C), N = window^2; mask (nW, N, N) or None."""
         B_, N, C = x.shape
         hd = C // self.heads
-        qkv = self.qkv(x).reshape(B_, N, 3, self.heads, hd)
-        q, k, v = qkv.unbind(2)
-        attn = torch.einsum("bnhd,bmhd->bhnm", q * hd ** -0.5, k)
+        qkv = self.qkv(x)
         bias = self.relative_position_bias_table[
             self.relative_position_index.reshape(-1)].reshape(N, N, -1)
+        if self.use_kernel:
+            bias = bias.permute(2, 0, 1).to(torch.float32).contiguous()
+            out = window_attention(qkv, bias, mask, self.heads)
+            return self.proj(out)
+        q, k, v = qkv.reshape(B_, N, 3, self.heads, hd).unbind(2)
+        attn = torch.einsum("bnhd,bmhd->bhnm", q * hd ** -0.5, k)
         attn = attn + bias.permute(2, 0, 1)[None]          # float32 from here
         if mask is not None:
             nW = mask.shape[0]
@@ -114,11 +134,11 @@ class ShiftWindowMSA(nn.Module):
 
 
 class SwinFFN(nn.Module):
-    def __init__(self, dim: int, hidden: int, dtype, device=None):
+    def __init__(self, cfg: SwinConfig, dim: int, hidden: int, device=None):
         super().__init__()
         self.layers = nn.ModuleList([
-            nn.Sequential(Linear(dim, hidden, device=device, dtype=dtype)),
-            Linear(hidden, dim, device=device, dtype=dtype)])
+            nn.Sequential(_dense(cfg, dim, hidden, device)),
+            _dense(cfg, hidden, dim, device)])
 
     def forward(self, x):
         return self.layers[1](gelu(self.layers[0](x), approximate=False))
@@ -132,8 +152,7 @@ class SwinBlock(nn.Module):
         self.norm1 = FusedLayerNorm(dim, cfg.ln_eps, device)
         self.attn = ShiftWindowMSA(cfg, dim, heads, device)
         self.norm2 = FusedLayerNorm(dim, cfg.ln_eps, device)
-        self.ffn = SwinFFN(dim, int(dim * cfg.mlp_ratio), cfg.compute_dtype,
-                           device)
+        self.ffn = SwinFFN(cfg, dim, int(dim * cfg.mlp_ratio), device)
         self._masks: dict = {}
 
     def _mask(self, Hp, Wp, device):

@@ -7,7 +7,9 @@ final LN) and a HeatmapHead of two 4x4 stride-2 deconvs (256 ch,
 BN+ReLU) and a 1x1 conv to 17 heatmaps at 64x48. Module names follow
 mmpose, so its ``state_dict`` keys are those of a released checkpoint.
 The attention runs ``nn/attention.py::packed_attention`` (the CUDA
-kernel on the card). Inputs and outputs are channels-last, as in the JAX
+kernel on the card). ``VitPoseConfig(quantize="int8")`` builds the block
+Dense layers as ``nn/quant.py::Int8Linear`` (the int8 serving tiers).
+Inputs and outputs are channels-last, as in the JAX
 package.
 """
 
@@ -22,6 +24,7 @@ from torch import nn
 from macaque_tpu_torch.nn.attention import packed_attention
 from macaque_tpu_torch.nn.layers import (
     BatchNorm2d, Conv2d, ConvTranspose2d, FusedLayerNorm, Linear, gelu)
+from macaque_tpu_torch.nn.quant import Int8Linear
 
 
 @dataclass(frozen=True)
@@ -37,12 +40,16 @@ class VitPoseConfig:
     deconv_channels: Tuple[int, ...] = (256, 256)
     ln_eps: float = 1e-6
     compute_dtype: Any = torch.float32
+    # "int8": weight + dynamic-activation int8 on the block Dense layers
+    # (nn/quant.py; load quantized weights or use quantize_vitpose_). None:
+    # the float path.
+    quantize: Any = None
 
     @property
     def _gelu_approx(self) -> bool:
-        """tanh-approximated GELU in bf16, exact erf in f32 (the JAX
-        package's default switch, vit.py:51-62)."""
-        return self.compute_dtype == torch.bfloat16
+        """tanh-approximated GELU in bf16 and int8, exact erf in f32: the
+        JAX package's default (vit.py:58-62)."""
+        return self.compute_dtype == torch.bfloat16 or self.quantize == "int8"
 
     @property
     def grid(self) -> Tuple[int, int]:
@@ -51,13 +58,19 @@ class VitPoseConfig:
                 (self.img_size[1] + 2 * pad - p) // p + 1)
 
 
+def _dense(cfg: VitPoseConfig, cin: int, cout: int, device=None):
+    """Block Dense layer: the int8 serving layer or the float Linear."""
+    if cfg.quantize == "int8":
+        return Int8Linear(cin, cout, device=device)
+    return Linear(cin, cout, device=device, dtype=cfg.compute_dtype)
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: VitPoseConfig, device=None):
         super().__init__()
-        kw = dict(device=device, dtype=cfg.compute_dtype)
         self.heads = cfg.num_heads
-        self.qkv = Linear(cfg.embed_dim, 3 * cfg.embed_dim, **kw)
-        self.proj = Linear(cfg.embed_dim, cfg.embed_dim, **kw)
+        self.qkv = _dense(cfg, cfg.embed_dim, 3 * cfg.embed_dim, device)
+        self.proj = _dense(cfg, cfg.embed_dim, cfg.embed_dim, device)
 
     def forward(self, x):
         return self.proj(packed_attention(self.qkv(x), self.heads))
@@ -66,12 +79,11 @@ class Attention(nn.Module):
 class FFN(nn.Module):
     def __init__(self, cfg: VitPoseConfig, device=None):
         super().__init__()
-        kw = dict(device=device, dtype=cfg.compute_dtype)
         hidden = int(cfg.embed_dim * cfg.mlp_ratio)
         self.approx = cfg._gelu_approx
         self.layers = nn.ModuleList([
-            nn.Sequential(Linear(cfg.embed_dim, hidden, **kw)),
-            Linear(hidden, cfg.embed_dim, **kw)])
+            nn.Sequential(_dense(cfg, cfg.embed_dim, hidden, device)),
+            _dense(cfg, hidden, cfg.embed_dim, device)])
 
     def forward(self, x):
         return self.layers[1](gelu(self.layers[0](x), self.approx))

@@ -38,18 +38,22 @@ class PerceptionBackend(Protocol):
 
 
 class TorchPerception:
-    """Swin Mask R-CNN + ViTPose (flip test) + ResNet-152 on one device:
-    the card unless ``device`` says otherwise."""
+    """Swin Mask R-CNN + ViTPose + ResNet-152 on one device: the card unless
+    ``device`` says otherwise. ``flip_test`` (the parity default) averages
+    the heatmaps of each crop and its mirror; the fast serving tier turns it
+    off for a single pass."""
 
     def __init__(self, detector_model, pose_model, id_model, max_det: int = 8,
-                 det_target: int = 800, device=None):
+                 det_target: int = 800, device=None, flip_test: bool = True):
         self.device = resolve_device(device)
         self.detector_model = detector_model
         self.pose_model = pose_model
         self.id_model = id_model
         self.max_det = max_det
-        # keep-ratio resize target of the detector input (mmdet's 800)
+        # keep-ratio resize target of the detector input (mmdet's 800; the
+        # fast tier's 640)
         self.det_target = det_target
+        self.flip_test = flip_test
 
     def _rgb(self, frames_bgr):
         frames = torch.from_numpy(np.ascontiguousarray(frames_bgr))
@@ -83,9 +87,12 @@ class TorchPerception:
         crops = normalize_rgb(udp_crop(self._rgb(frames_bgr), centers, scales,
                                        out_hw=pose_hw))
         crops = crops.reshape(B * D, *crops.shape[2:])
-        # flip test: direct and mirrored crops through the network as one batch
-        hm2 = self.pose_model(torch.cat([crops, crops.flip(2)]))
-        hm = 0.5 * (hm2[:B * D] + flip_heatmaps(hm2[B * D:]))
+        if self.flip_test:
+            # direct and mirrored crops through the network as one batch
+            hm2 = self.pose_model(torch.cat([crops, crops.flip(2)]))
+            hm = 0.5 * (hm2[:B * D] + flip_heatmaps(hm2[B * D:]))
+        else:
+            hm = self.pose_model(crops)
         kp, scores = udp_decode(hm.to(torch.float32),
                                 input_size=(pose_hw[1], pose_hw[0]))
         kp_img = crop_coords_to_image(kp, centers.reshape(B * D, 2),

@@ -8,11 +8,25 @@ names are mmdet/mmpose/mmpretrain's, and wraps them in a
 card the models compute in bfloat16 (norm statistics, heads and box
 coordinates in float32), on the CPU in float32, as the JAX package does on
 its accelerator and on the CPU.
+
+Serving tiers (``macaque_tpu/pipeline/weights.py``; default = exact mmdet
+parity), from keyword arguments or, where those are left None, the same
+environment variables as the JAX package:
+  * ``int8`` / ``MACAQUE_TPU_INT8=1``: int8 ViT pose blocks (``nn/quant.py``);
+  * ``serving`` / ``MACAQUE_TPU_SERVING=1``: the 512/128 RPN-RoI detector
+    budgets (``DetectorConfig.serving()``) and int8 pose;
+  * ``fast`` / ``MACAQUE_TPU_FAST=1``: the serving detector at a 640 input
+    target and a single-pass (no flip test) int8 pose;
+  * ``det_target`` / ``MACAQUE_TPU_DET_TARGET``: the detector's keep-ratio
+    input target (800, or 640 in the fast tier).
+The int8 pose is quantized from the float32 checkpoint (``quantize_vitpose_``),
+as the JAX package quantizes its float32 parameters.
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 
 import torch
 
@@ -26,9 +40,10 @@ _IGNORABLE_PATTERNS = (
 )
 
 
-def load_checkpoint(model: torch.nn.Module, path: str) -> None:
+def load_checkpoint(model: torch.nn.Module, path: str) -> dict:
     """Load a .pth (mmengine's ``{'state_dict': ...}`` wrapper or a bare
-    state dict) into ``model``; every parameter must be present."""
+    state dict) into ``model``; every parameter must be present. Returns the
+    state dict that was loaded."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = ckpt.get("state_dict", ckpt)
     sd = {k: v for k, v in sd.items()
@@ -41,22 +56,56 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> None:
     if unexpected:
         print(f"[weights] {path}: {len(unexpected)} checkpoint keys not "
               f"consumed, e.g. {unexpected[:5]}")
+    return sd
 
 
-def build_torch_perception(weights_dir: str, device=None):
+@dataclass(frozen=True)
+class ServingTier:
+    int8: bool
+    serving: bool
+    flip_test: bool
+    det_target: int
+
+
+def serving_tier(int8=None, serving=None, fast=None,
+                 det_target=None) -> ServingTier:
+    """The tier the arguments select; an argument left None reads its
+    environment variable, as ``build_flax_perception`` reads them."""
+    def env(name):
+        return os.environ.get(name, "0") == "1"
+
+    fast = env("MACAQUE_TPU_FAST") if fast is None else fast
+    serving = (env("MACAQUE_TPU_SERVING") if serving is None else serving) or fast
+    int8 = (env("MACAQUE_TPU_INT8") if int8 is None else int8) or serving
+    if det_target is None:
+        det_target = int(os.environ.get("MACAQUE_TPU_DET_TARGET",
+                                        640 if fast else 800))
+    return ServingTier(int8, serving, not fast, det_target)
+
+
+def build_torch_perception(weights_dir: str, device=None, *, int8=None,
+                           serving=None, fast=None, det_target=None):
+    """The three models from their checkpoints, in the serving tier the
+    arguments (or the environment) select, wrapped in a TorchPerception."""
     from macaque_tpu_torch.nn import (
         DetectorConfig, ResNetClassifier, ResNetConfig, SwinMaskRCNN,
         ViTPose, VitPoseConfig)
+    from macaque_tpu_torch.nn.quant import quantize_vitpose_
     from macaque_tpu_torch.nn.swin import SwinConfig
     from macaque_tpu_torch.pipeline.perception import TorchPerception
 
     device = resolve_device(device)
+    tier = serving_tier(int8, serving, fast, det_target)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    det = SwinMaskRCNN(DetectorConfig(swin=SwinConfig(compute_dtype=dtype),
-                                      compute_dtype=dtype), device=device)
+    det_kw = dict(swin=SwinConfig(compute_dtype=dtype), compute_dtype=dtype)
+    det = SwinMaskRCNN(DetectorConfig.serving(**det_kw) if tier.serving
+                       else DetectorConfig(**det_kw), device=device)
     pose = ViTPose(VitPoseConfig(compute_dtype=dtype), device=device)
     idm = ResNetClassifier(ResNetConfig(compute_dtype=dtype), device=device)
     load_checkpoint(det, os.path.join(weights_dir, "detection/detection.pth"))
-    load_checkpoint(pose, os.path.join(weights_dir, "pose/pose.pth"))
+    pose_sd = load_checkpoint(pose, os.path.join(weights_dir, "pose/pose.pth"))
+    if tier.int8:
+        quantize_vitpose_(pose, pose_sd)
     load_checkpoint(idm, os.path.join(weights_dir, "id/id_finetuned.pth"))
-    return TorchPerception(det, pose, idm, device=device)
+    return TorchPerception(det, pose, idm, det_target=tier.det_target,
+                           device=device, flip_test=tier.flip_test)

@@ -12,7 +12,11 @@ import torch
 
 from macaque_tpu_torch import kernels
 from macaque_tpu_torch.nn.attention import (
-    packed_attention, packed_attention_reference)
+    packed_attention, packed_attention_reference, window_attention,
+    window_attention_reference)
+from macaque_tpu_torch.nn.int8 import (
+    quant_int8_matmul, quant_int8_matmul_reference, quant_int8_matmul_split,
+    quantize_rows, quantize_rows_reference)
 from macaque_tpu_torch.nn.roialign import (
     WINDOW_BUCKETS, roi_align_windows, roi_align_windows_reference,
     window_inputs)
@@ -70,3 +74,101 @@ def test_roi_align_kernel(card, window):
     n = kernels.LAUNCHES["roi_align_windowed"]
     _close(roi_align_windows(*args), roi_align_windows_reference(*args))
     assert kernels.LAUNCHES["roi_align_windowed"] == n + 1
+
+
+def _int8_inputs(card, M, K, N, seed=2):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(M, K))).to(card, torch.bfloat16)
+    wq = torch.from_numpy(rng.integers(-127, 128, (N, K), dtype=np.int8)).to(card)
+    ws = torch.from_numpy(rng.uniform(1e-3, 1e-2, N).astype(np.float32)).to(card)
+    b = torch.from_numpy(rng.normal(0, 0.1, N).astype(np.float32)).to(card)
+    return x, wq, ws, b
+
+
+@pytest.mark.parametrize("M,K", [(300, 1280), (1000, 5120), (77, 96)])
+def test_quantize_rows_kernel_is_exact(card, M, K):
+    x, *_ = _int8_inputs(card, M, K, 8)
+    n = kernels.LAUNCHES["quantize_rows"]
+    q, s = quantize_rows(x)
+    rq, rs = quantize_rows_reference(x)
+    assert kernels.LAUNCHES["quantize_rows"] == n + 1
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+
+
+# ViT-huge qkv and fc2, a ragged Swin shape (M, N not multiples of the tile,
+# K = 96 not a multiple of the 64-deep step)
+@pytest.mark.parametrize("M,K,N", [(384, 1280, 3840), (200, 5120, 1280),
+                                   (333, 96, 288)])
+@pytest.mark.parametrize("bias", [False, True])
+def test_quant_int8_matmul_kernel_is_exact(card, M, K, N, bias):
+    x, wq, ws, b = _int8_inputs(card, M, K, N)
+    b = b if bias else None
+    n = kernels.LAUNCHES["quant_int8_matmul"]
+    got = quant_int8_matmul(x, wq, ws, b)
+    assert kernels.LAUNCHES["quant_int8_matmul"] == n + 1
+    assert torch.equal(got, quant_int8_matmul_reference(x, wq, ws, b))
+    assert torch.equal(quant_int8_matmul_split(x, wq, ws, b), got)
+
+
+def test_int8_kernels_refuse_what_they_were_not_built_for(card):
+    x, wq, ws, b = _int8_inputs(card, 64, 1280, 256)
+    with pytest.raises(TypeError):
+        quantize_rows(x.float())
+    with pytest.raises(TypeError):
+        quant_int8_matmul(x.float(), wq, ws, b)
+    with pytest.raises(ValueError):
+        quantize_rows(x[:, :1000].contiguous())                 # K % 32
+    with pytest.raises(ValueError):
+        quant_int8_matmul(x, wq[:250].contiguous(), ws[:250], b[:250])  # N % 8
+    with pytest.raises(ValueError):
+        quant_int8_matmul(x[:, ::2], wq[:, :640].contiguous(), ws, b)   # strided
+    with pytest.raises(ValueError):
+        quant_int8_matmul(x, wq.cpu(), ws, b)                   # weights on the CPU
+
+
+@pytest.mark.parametrize("K, kernel", [(1280, "quantize_rows"),
+                                       (5120, "quant_int8_matmul")])
+def test_int8_linear_takes_its_route_on_the_card(card, K, kernel):
+    """Int8Linear picks its kernel from K: the split route (K5a, then
+    torch._int_mm) up to K = 2048, the fused kernel K5b above."""
+    from macaque_tpu_torch.nn.quant import Int8Linear
+
+    x, wq, ws, b = _int8_inputs(card, 384, K, 256, 3)
+    m = Int8Linear(K, 256, device=card)
+    m.load_state_dict({"weight_q": wq, "wscale": ws, "bias": b})
+    before = dict(kernels.LAUNCHES)
+    got = m(x)
+    launched = {k for k, v in kernels.LAUNCHES.items() if v != before[k]}
+    assert launched == {kernel}
+    assert torch.equal(got, quant_int8_matmul_reference(x, wq, ws, b))
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_window_attention_kernel(card, dtype, masked, blocked):
+    rng = np.random.default_rng(3)
+    nW, heads = 16, 6
+    qkv = torch.from_numpy(rng.normal(size=(2 * nW, 49, 3 * heads * 32))).to(
+        card, dtype)
+    bias = torch.from_numpy(rng.normal(0, 0.5, (heads, 49, 49))).to(
+        card, torch.float32)
+    mask = (torch.from_numpy(np.where(rng.random((nW, 49, 49)) < 0.3, -100.0,
+                                      0.0)).to(card, torch.float32)
+            if masked else None)
+    n = kernels.LAUNCHES["window_attention"]
+    got = window_attention(qkv, bias, mask, heads, blocked)
+    assert kernels.LAUNCHES["window_attention"] == n + 1
+    _close(got, window_attention_reference(qkv, bias, mask, heads, blocked))
+
+
+def test_window_attention_refuses_what_it_was_not_built_for(card):
+    bias = torch.zeros((3, 49, 49), device=card)
+    with pytest.raises(TypeError):
+        window_attention(torch.zeros((4, 49, 288), device=card,
+                                     dtype=torch.float16), bias, None, 3)
+    with pytest.raises(ValueError):                             # d = 16
+        window_attention(torch.zeros((4, 49, 144), device=card), bias, None, 3)
+    with pytest.raises(ValueError):                             # 3 masks for 4
+        window_attention(torch.zeros((4, 49, 288), device=card), bias,
+                         torch.zeros((3, 49, 49), device=card), 3)
