@@ -29,7 +29,8 @@ BUILD_DIR = os.environ.get(
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 LAUNCHES = {"packed_attention": 0, "roi_align_windowed": 0, "quantize_rows": 0,
-            "quant_int8_matmul": 0, "window_attention": 0}
+            "quant_int8_matmul": 0, "window_attention": 0, "attention": 0,
+            "swin_block": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -101,6 +102,12 @@ def library() -> ctypes.CDLL:
             lib.macaque_window_attention.argtypes = [
                 p, p, p, p, i, i, i, i, i, f, i, i, p]
             lib.macaque_window_attention.restype = i
+            lib.macaque_attention.argtypes = [p, p, p, p, i, i, i, i, f, p]
+            lib.macaque_attention.restype = i
+            lib.macaque_swin_block_slots.argtypes = [i, ctypes.POINTER(i)]
+            lib.macaque_swin_block_slots.restype = i
+            lib.macaque_swin_block.argtypes = [p] * 18 + [i] * 5 + [f, p]
+            lib.macaque_swin_block.restype = i
             _lib = lib
     return _lib
 

@@ -1,5 +1,5 @@
-"""Multi-head attention on packed qkv activations: the ViTPose blocks and the
-Swin windows.
+"""Multi-head attention: the ViTPose blocks, the Swin windows, and unpacked
+(B, N, H, D) attention.
 
 ``packed_attention`` computes softmax(Q K^T / sqrt(d)) V straight from the
 qkv Dense output (B, N, 3C) and writes (B, N, C), the layout the output
@@ -12,6 +12,14 @@ It replaces ``macaque_tpu/nn/pallas_attention.py::fused_attention_packed``.
 ``fused_window_attention`` and ``fused_window_attention_blocked``: on a CUDA
 tensor the kernel in ``csrc/window_attention.cu`` (49 tokens, d = 32: the
 Swin-S shapes), on a CPU tensor ``window_attention_reference``.
+
+``fused_attention`` and ``fused_attention_blocked`` are the same file's two
+unpacked kernels (one grid step per batch element and head, or per batch
+element with the heads in turn), and ``attention`` its dispatcher: all three
+take, on a CUDA tensor, the one kernel in ``csrc/attention.cu`` (bf16,
+N = 192, d = 80) with one block per (batch element, head) -- heads share no
+K or V, so the TPU's head-blocked grid only idles SMs on the card -- and on a
+CPU tensor ``attention_reference``.
 """
 
 from __future__ import annotations
@@ -144,3 +152,62 @@ def window_attention(qkv, bias, mask, heads: int,
         kernels.check(err, "window_attention")
         kernels.LAUNCHES["window_attention"] += 1
     return out
+
+
+def attention_reference(q, k, v) -> torch.Tensor:
+    """Plain version of the unpacked kernels: q, k, v (B, N, H, D) ->
+    (B, N, H, D) in q's dtype, all of it in (at least) f32:
+    ``S = (Q K^T) * scale`` (the scale after the dot), an f32 softmax, and
+    P V with P kept in f32 (``_attn_kernel``)."""
+    acc = acc_dtype(q.dtype)
+    qh, kh, vh = (t.to(acc).transpose(1, 2) for t in (q, k, v))
+    s = (qh @ kh.transpose(-1, -2)) * (q.shape[-1] ** -0.5)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = p / p.sum(-1, keepdim=True)
+    return (p @ vh).transpose(1, 2).to(q.dtype)
+
+
+def _unpacked_attention(q, k, v, name: str) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name}: q, k, v must share one (B, N, H, D) shape, "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, N, H, D = q.shape
+    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
+        raise TypeError(f"{name}: kernel takes bfloat16, got {q.dtype}")
+    if (N, D) != (192, 80):
+        raise ValueError(f"{name}: kernel built for N=192, d=80; got N={N}, d={D}")
+    for t in (q, k, v):
+        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: q, k, v must be contiguous, 16-byte "
+                             f"aligned and on {q.device}")
+    out = torch.empty_like(q)
+    if B and H:
+        err = kernels.library().macaque_attention(
+            ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
+            ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            B, N, H, D, float(D ** -0.5), kernels.current_stream(q.device))
+        kernels.check(err, name)
+        kernels.LAUNCHES["attention"] += 1
+    return out
+
+
+def fused_attention(q, k, v) -> torch.Tensor:
+    """(B, N, H, D) attention: the kernel on CUDA, the plain version on the
+    CPU."""
+    return _unpacked_attention(q, k, v, "fused_attention")
+
+
+def fused_attention_blocked(q, k, v) -> torch.Tensor:
+    """The JAX head-blocked entry point; on the card the same kernel and grid
+    as ``fused_attention``."""
+    return _unpacked_attention(q, k, v, "fused_attention_blocked")
+
+
+def attention(q, k, v) -> torch.Tensor:
+    """The dispatcher: the kernel on CUDA, the plain version on the CPU."""
+    return _unpacked_attention(q, k, v, "attention")

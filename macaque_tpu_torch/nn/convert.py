@@ -108,19 +108,18 @@ def resnet_from_jax(variables) -> dict:
     return sd
 
 
-def swin_maskrcnn_from_jax(variables) -> dict:
-    """``macaque_tpu.nn.detector.SwinMaskRCNN`` variables ->
-    ``nn.detector.SwinMaskRCNN`` state_dict."""
-    prm = variables["params"]
-    bb = prm["backbone"]
+def swin_backbone_from_jax(params, prefix: str = "") -> dict:
+    """A ``macaque_tpu.nn.swin.SwinBackbone`` parameter tree (its
+    ``variables["params"]``, or a detector's ``params["backbone"]``) ->
+    ``nn.swin.SwinBackbone`` state_dict, every key led by ``prefix``."""
     sd: dict = {}
-    _conv(sd, "backbone.patch_embed.projection", bb["patch_embed"])
-    _ln(sd, "backbone.patch_embed.norm", bb["patch_norm"])
-    for name, blk in bb.items():
+    _conv(sd, f"{prefix}patch_embed.projection", params["patch_embed"])
+    _ln(sd, f"{prefix}patch_embed.norm", params["patch_norm"])
+    for name, blk in params.items():
         if "_block" not in name:
             continue
         s, b = name[len("stage"):].split("_block")
-        p = f"backbone.stages.{s}.blocks.{b}"
+        p = f"{prefix}stages.{s}.blocks.{b}"
         _ln(sd, f"{p}.norm1", blk["ln1"])
         _linear(sd, f"{p}.attn.w_msa.qkv", blk["attn"]["qkv"])
         _linear(sd, f"{p}.attn.w_msa.proj", blk["attn"]["proj"])
@@ -129,14 +128,22 @@ def swin_maskrcnn_from_jax(variables) -> dict:
         _ln(sd, f"{p}.norm2", blk["ln2"])
         _linear(sd, f"{p}.ffn.layers.0.0", blk["fc1"])
         _linear(sd, f"{p}.ffn.layers.1", blk["fc2"])
-    for name, m in bb.items():
+    for name, m in params.items():
         if name.startswith("merge"):
             s = name[len("merge"):]
-            _ln(sd, f"backbone.stages.{s}.downsample.norm", m["ln"])
-            _linear(sd, f"backbone.stages.{s}.downsample.reduction",
+            _ln(sd, f"{prefix}stages.{s}.downsample.norm", m["ln"])
+            _linear(sd, f"{prefix}stages.{s}.downsample.reduction",
                     m["reduction"])
         elif name.startswith("out_norm"):
-            _ln(sd, f"backbone.norm{name[len('out_norm'):]}", m)
+            _ln(sd, f"{prefix}norm{name[len('out_norm'):]}", m)
+    return sd
+
+
+def swin_maskrcnn_from_jax(variables) -> dict:
+    """``macaque_tpu.nn.detector.SwinMaskRCNN`` variables ->
+    ``nn.detector.SwinMaskRCNN`` state_dict."""
+    prm = variables["params"]
+    sd = swin_backbone_from_jax(prm["backbone"], "backbone.")
     for name, m in prm["fpn"].items():
         kind, i = (("lateral_convs", name[len("lateral"):])
                    if name.startswith("lateral")

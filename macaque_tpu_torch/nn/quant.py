@@ -18,13 +18,9 @@ heads) stays in the float path.
     the JAX package's "pallas" route at these K) and the fused kernel K5b
     above (``nn/int8.py::quant_int8_matmul``). On the H100 the split route
     is the faster of the two at K = 1280 (``chip_smoke.py`` times both).
-Both card routes add the bias in float32 before the cast, in one fused
-multiply-add with the last scale, as the JAX package's split scheme and its
-fused Pallas kernel do (``pallas_int8.py:93-94``). The JAX model never runs
-that fused kernel (only ``macaque_tpu/tools/int8_probe.py`` calls it), and
-its default tier adds the bias after the cast: the card's int8 layers agree
-with it exactly in float32 and can differ from it by one bf16 ulp in
-bfloat16.
+Both card routes run without a bias, ``(acc * s) * wscale`` cast to the
+input dtype, and the layer then adds the bias in that dtype: the chain of
+the JAX default tier, so the card and the CPU give the same bits.
 """
 
 from __future__ import annotations
@@ -91,10 +87,12 @@ class Int8Linear(nn.Module):
     def forward(self, x):
         if x.device.type == "cpu":
             return int8_matmul_reference(x, self.weight_q, self.wscale, self.bias)
-        if self.route == "split":
-            return quant_int8_matmul_split(x, self.weight_q, self.wscale,
-                                           self.bias)
-        return quant_int8_matmul(x, self.weight_q, self.wscale, self.bias)
+        route = (quant_int8_matmul_split if self.route == "split"
+                 else quant_int8_matmul)
+        out = route(x, self.weight_q, self.wscale, None)
+        if self.bias is not None:
+            out = out + self.bias.to(out.dtype)
+        return out
 
     def extra_repr(self):
         return (f"in_features={self.in_features}, out_features="
@@ -119,37 +117,65 @@ def _swap(parent: nn.Module, name: str, key: str, source) -> None:
     setattr(holder, attr, Int8Linear.from_weights(weight, bias))
 
 
+def _quantize_layers_(layers, source, what: str) -> None:
+    """Swap each (parent, name, key) layer. The codes come from float32
+    weights, as the JAX quantizers read them: from ``source`` where given,
+    else from the layers' own weights, which must then be float32 (a bf16
+    model's weights are already rounded)."""
+    if source is None:
+        for parent, name, _ in layers:
+            lin = getattr(parent, name)
+            w = (lin[0] if isinstance(lin, nn.Sequential) else lin).weight
+            if w.dtype != torch.float32:
+                raise ValueError(
+                    f"{what}: the model's weights are {w.dtype}; pass the "
+                    "float32 state dict as source")
+    for parent, name, key in layers:
+        _swap(parent, name, key, source)
+
+
 def quantize_vitpose_(model, source: dict | None = None):
     """Swap every ViTPose block's qkv/proj/fc1/fc2 Linear for an Int8Linear,
     in place, and set the model's config to ``quantize="int8"`` (which also
     switches its GELU to the tanh form, as in the JAX package). ``source``, a
     float state dict (a checkpoint), supplies the float32 weights to
-    quantize; without it each layer's own weight is used. Returns the
-    model."""
+    quantize; without it each layer's own weight is used, and a model whose
+    weights are not float32 is refused. Returns the model."""
     cfg = dataclasses.replace(model.cfg, quantize="int8")
+    layers = []
     for i, blk in enumerate(model.backbone.layers):
         p = f"backbone.layers.{i}"
-        _swap(blk.attn, "qkv", f"{p}.attn.qkv", source)
-        _swap(blk.attn, "proj", f"{p}.attn.proj", source)
-        _swap(blk.ffn.layers, "0", f"{p}.ffn.layers.0.0", source)
-        _swap(blk.ffn.layers, "1", f"{p}.ffn.layers.1", source)
+        layers += [(blk.attn, "qkv", f"{p}.attn.qkv"),
+                   (blk.attn, "proj", f"{p}.attn.proj"),
+                   (blk.ffn.layers, "0", f"{p}.ffn.layers.0.0"),
+                   (blk.ffn.layers, "1", f"{p}.ffn.layers.1")]
+    _quantize_layers_(layers, source, "quantize_vitpose_")
+    for blk in model.backbone.layers:
         blk.ffn.approx = cfg._gelu_approx
     model.cfg = cfg
     return model
 
 
-def quantize_swin_(model):
+def quantize_swin_(model, source: dict | None = None):
     """Swap the qkv/proj/fc1/fc2 Linear of every Swin block for an
-    Int8Linear quantized from its own weight, in place, in a SwinMaskRCNN
-    (its ``backbone``) or a bare SwinBackbone, and set the backbone's config
-    to ``quantize="int8"``. The patch embedding, patch merging, FPN and
-    heads stay in the float path. Returns the model."""
-    bb = model.backbone if hasattr(model, "backbone") else model
-    for stage in bb.stages:
-        for blk in stage.blocks:
-            msa = blk.attn.w_msa
-            for parent, name in ((msa, "qkv"), (msa, "proj"),
-                                 (blk.ffn.layers, "0"), (blk.ffn.layers, "1")):
-                _swap(parent, name, None, None)
+    Int8Linear, in place, in a SwinMaskRCNN (its ``backbone``) or a bare
+    SwinBackbone, and set the backbone's config to ``quantize="int8"``.
+    ``source``, the model's float state dict (a checkpoint: keys
+    ``backbone.stages...`` for a SwinMaskRCNN, ``stages...`` for a bare
+    backbone), supplies the float32 weights to quantize; without it each
+    layer's own weight is used, and a model whose weights are not float32 is
+    refused. The patch embedding, patch merging, FPN and heads stay in the
+    float path. Returns the model."""
+    bb, prefix = ((model.backbone, "backbone.") if hasattr(model, "backbone")
+                  else (model, ""))
+    layers = []
+    for s, stage in enumerate(bb.stages):
+        for b, blk in enumerate(stage.blocks):
+            msa, p = blk.attn.w_msa, f"{prefix}stages.{s}.blocks.{b}"
+            layers += [(msa, "qkv", f"{p}.attn.w_msa.qkv"),
+                       (msa, "proj", f"{p}.attn.w_msa.proj"),
+                       (blk.ffn.layers, "0", f"{p}.ffn.layers.0.0"),
+                       (blk.ffn.layers, "1", f"{p}.ffn.layers.1")]
+    _quantize_layers_(layers, source, "quantize_swin_")
     bb.cfg = dataclasses.replace(bb.cfg, quantize="int8")
     return model

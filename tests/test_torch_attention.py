@@ -1,7 +1,8 @@
-"""The port's packed attention (``macaque_tpu_torch.nn.attention``) against
-the JAX package's Pallas kernel (interpret mode) and jax.nn's attention,
-on the same numpy inputs. The CUDA kernel is held against its plain
-version on a card in test_torch_cuda.py."""
+"""The port's packed attention and its unpacked attention with the
+dispatcher (``macaque_tpu_torch.nn.attention``) against the JAX package's
+Pallas kernels (interpret mode) and jax.nn's attention, on the same numpy
+inputs. The CUDA kernels are held against their plain versions on a card in
+test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -10,9 +11,11 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from macaque_tpu.nn import pallas_attention as pa
 from macaque_tpu.nn.pallas_attention import fused_attention_packed
 from macaque_tpu_torch import kernels
 from macaque_tpu_torch.nn.attention import (
+    attention, attention_reference, fused_attention, fused_attention_blocked,
     packed_attention, packed_attention_reference)
 
 
@@ -64,3 +67,62 @@ def test_wrapper_runs_plain_version_on_cpu():
 def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         packed_attention(torch.empty((1, 192, 3840), device="meta"), 16)
+
+
+def _qkv_unpacked(seed, B, N, H, D):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(B, N, H, D)).astype(np.float32) for _ in range(3)]
+
+
+JAX_UNPACKED = {"fused_attention": pa.fused_attention,
+                "fused_attention_blocked": pa.fused_attention_blocked}
+PORT_UNPACKED = {"attention_reference": attention_reference,
+                 "attention": attention, "fused_attention": fused_attention,
+                 "fused_attention_blocked": fused_attention_blocked}
+
+
+# float32 both sides, the shapes of tests/test_pallas_attention.py and a
+# small one: summation order only
+@pytest.mark.parametrize("port", PORT_UNPACKED)
+@pytest.mark.parametrize("kernel", JAX_UNPACKED)
+@pytest.mark.parametrize("B,N,H,D", [(2, 192, 4, 80), (3, 16, 2, 8)])
+def test_unpacked_attention_matches_pallas_kernels(B, N, H, D, kernel, port):
+    q, k, v = _qkv_unpacked(4, B, N, H, D)
+    want = np.asarray(JAX_UNPACKED[kernel](
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True))
+    got = PORT_UNPACKED[port](*map(torch.from_numpy, (q, k, v)))
+    assert got.dtype == torch.float32 and got.shape == (B, N, H, D)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+
+
+@pytest.mark.parametrize("kernel", JAX_UNPACKED)
+def test_unpacked_attention_bf16_matches_pallas_kernels(kernel):
+    """bf16 in and out, f32 inside on both sides (P not rounded): the two
+    round one f32 result each to bf16, within one bf16 ulp of the largest
+    output (2^-7 relative)."""
+    q, k, v = _qkv_unpacked(5, 2, 64, 2, 16)
+    want = np.asarray(JAX_UNPACKED[kernel](
+        *(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)), interpret=True),
+        np.float32)
+    got = attention_reference(*(torch.from_numpy(t).to(torch.bfloat16)
+                                for t in (q, k, v)))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               atol=2.0 ** -7 * np.abs(want).max())
+
+
+def test_unpacked_wrappers_run_plain_version_on_cpu():
+    q, k, v = map(torch.from_numpy, _qkv_unpacked(6, 2, 16, 2, 8))
+    before = dict(kernels.LAUNCHES)
+    want = attention_reference(q, k, v)
+    for fn in (attention, fused_attention, fused_attention_blocked):
+        torch.testing.assert_close(fn(q, k, v), want, rtol=0, atol=0)
+    assert kernels.LAUNCHES == before     # the CPU path launches nothing
+
+
+@pytest.mark.parametrize("fn", [attention, fused_attention,
+                                fused_attention_blocked])
+def test_unpacked_wrappers_refuse_other_devices(fn):
+    t = torch.empty((1, 192, 16, 80), device="meta")
+    with pytest.raises(ValueError):
+        fn(t, t, t)

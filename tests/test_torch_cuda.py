@@ -12,11 +12,13 @@ import torch
 
 from macaque_tpu_torch import kernels
 from macaque_tpu_torch.nn.attention import (
+    attention, attention_reference, fused_attention, fused_attention_blocked,
     packed_attention, packed_attention_reference, window_attention,
     window_attention_reference)
 from macaque_tpu_torch.nn.int8 import (
     quant_int8_matmul, quant_int8_matmul_reference, quant_int8_matmul_split,
     quantize_rows, quantize_rows_reference)
+from macaque_tpu_torch.nn.quant import Int8Linear, int8_matmul_reference
 from macaque_tpu_torch.nn.roialign import (
     WINDOW_BUCKETS, roi_align_windows, roi_align_windows_reference,
     window_inputs)
@@ -130,9 +132,8 @@ def test_int8_kernels_refuse_what_they_were_not_built_for(card):
                                        (5120, "quant_int8_matmul")])
 def test_int8_linear_takes_its_route_on_the_card(card, K, kernel):
     """Int8Linear picks its kernel from K: the split route (K5a, then
-    torch._int_mm) up to K = 2048, the fused kernel K5b above."""
-    from macaque_tpu_torch.nn.quant import Int8Linear
-
+    torch._int_mm) up to K = 2048, the fused kernel K5b above; either way
+    it computes the JAX default tier's chain, bias added after the cast."""
     x, wq, ws, b = _int8_inputs(card, 384, K, 256, 3)
     m = Int8Linear(K, 256, device=card)
     m.load_state_dict({"weight_q": wq, "wscale": ws, "bias": b})
@@ -140,7 +141,21 @@ def test_int8_linear_takes_its_route_on_the_card(card, K, kernel):
     got = m(x)
     launched = {k for k, v in kernels.LAUNCHES.items() if v != before[k]}
     assert launched == {kernel}
-    assert torch.equal(got, quant_int8_matmul_reference(x, wq, ws, b))
+    assert torch.equal(got, int8_matmul_reference(x, wq, ws, b))
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("M,K", [(300, 1280), (77, 5120), (333, 96)])
+def test_int8_linear_equals_the_jax_default_chain(card, M, K, bias):
+    """Both card routes, with and without a bias, bit for bit against
+    int8_matmul_reference, the chain the layer runs on the CPU."""
+    x, wq, ws, b = _int8_inputs(card, M, K, 264, 4)
+    m = Int8Linear(K, 264, bias=bias, device=card)
+    m.weight_q, m.wscale = wq, ws
+    if bias:
+        m.bias = b
+    assert m.route == ("split" if K <= 2048 else "fused")
+    assert torch.equal(m(x), int8_matmul_reference(x, wq, ws, m.bias))
 
 
 @pytest.mark.parametrize("blocked", [False, True])
@@ -172,3 +187,98 @@ def test_window_attention_refuses_what_it_was_not_built_for(card):
     with pytest.raises(ValueError):                             # 3 masks for 4
         window_attention(torch.zeros((4, 49, 288), device=card), bias,
                          torch.zeros((3, 49, 49), device=card), 3)
+
+
+def _bf16(card, rng, *shape, scale=1.0):
+    return (torch.from_numpy(rng.normal(size=shape) * scale)
+            .to(card, torch.bfloat16))
+
+
+@pytest.mark.parametrize("fn, name", [(fused_attention, "per head"),
+                                      (fused_attention_blocked, "blocked"),
+                                      (attention, "dispatcher")])
+def test_attention_kernel(card, fn, name):
+    rng = np.random.default_rng(6)
+    q, k, v = (_bf16(card, rng, 4, 192, 16, 80) for _ in range(3))
+    n = kernels.LAUNCHES["attention"]
+    _close(fn(q, k, v), attention_reference(q, k, v))
+    assert kernels.LAUNCHES["attention"] == n + 1
+
+
+def test_attention_refuses_what_it_was_not_built_for(card):
+    t = torch.zeros((2, 192, 16, 80), device=card)
+    with pytest.raises(TypeError):
+        attention(t, t, t)                                      # float32
+    t = t.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        attention(t[:, :64].contiguous(), t[:, :64].contiguous(),
+                  t[:, :64].contiguous())                       # N = 64
+    with pytest.raises(ValueError):
+        attention(t, t, t[:1])                                  # shapes differ
+
+
+def _swin_block_case(card, seed, C, images, grid, masked):
+    """Windows of ``images`` images of ``grid`` (rows, cols) windows, a few
+    spatial-pad tokens, the relative bias, a shift-like mask and block
+    parameters near a trained block's scale."""
+    from macaque_tpu_torch.nn.swin import _shift_mask
+
+    rng = np.random.default_rng(seed)
+    heads, nW = C // 32, images * grid[0] * grid[1]
+    x = _bf16(card, rng, nW, 49, C)
+    tv = torch.ones((nW, 49), dtype=torch.bool, device=card)
+    tv[-1, 30:] = False
+    bias = torch.from_numpy(rng.normal(0, 0.5, (heads, 49, 49))).to(card, torch.float32)
+    mask = (torch.as_tensor(_shift_mask(7 * grid[0], 7 * grid[1], 7, 3), device=card)
+            if masked else None)
+    p = {}
+    for name, (n, k) in {"qkv": (3 * C, C), "proj": (C, C), "fc1": (4 * C, C),
+                         "fc2": (C, 4 * C)}.items():
+        p[f"{name}.weight"] = _bf16(card, rng, n, k, scale=k ** -0.5)
+        p[f"{name}.bias"] = _bf16(card, rng, n, scale=0.1)
+    for name in ("ln1", "ln2"):
+        p[f"{name}.weight"] = torch.from_numpy(1 + rng.normal(0, 0.1, C)).to(card, torch.float32)
+        p[f"{name}.bias"] = torch.from_numpy(rng.normal(0, 0.1, C)).to(card, torch.float32)
+    return x, tv, p, bias, mask, heads
+
+
+# the four Swin-S widths; more windows than the card keeps resident at 96
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("C, images, grid", [(96, 6, (22, 29)), (192, 2, (11, 15)),
+                                             (384, 2, (6, 8)), (768, 2, (3, 4))])
+def test_swin_block_kernel(card, C, images, grid, masked):
+    from macaque_tpu_torch.nn.swin_block import (
+        fused_swin_block, fused_swin_block_reference)
+
+    args = _swin_block_case(card, 7, C, images, grid, masked)
+    n = kernels.LAUNCHES["swin_block"]
+    got = fused_swin_block(*args)
+    assert kernels.LAUNCHES["swin_block"] == n + 1
+    want = fused_swin_block_reference(*args)
+    torch.cuda.synchronize()
+    # bf16 ulp flips of the intermediates (see chip_smoke.py): 2^-5 of the
+    # block's largest contribution out - x
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -5 * (want.float() - args[0].float()).abs().max().item()
+
+
+def test_fused_swin_s_trunk(card):
+    """Swin-S at full width on two 224 x 160 frames: 24 launches, the four
+    maps within 2^-5 of each map's range of SwinBackbone's (bf16 rounding
+    at other places, carried through 24 blocks; see chip_smoke.py)."""
+    from macaque_tpu_torch.nn.swin import SwinBackbone, SwinConfig
+    from macaque_tpu_torch.nn.swin_block import swin_backbone_apply_fused
+
+    torch.manual_seed(0)
+    bb = SwinBackbone(SwinConfig(compute_dtype=torch.bfloat16), device=card)
+    x = torch.randn((2, 224, 160, 3), device=card)
+    n = kernels.LAUNCHES["swin_block"]
+    got = swin_backbone_apply_fused(bb, x)
+    assert kernels.LAUNCHES["swin_block"] == n + 24
+    with torch.no_grad():
+        want = bb(x)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g.float()).all()
+        span = (w.float().max() - w.float().min()).item()
+        assert (g.float() - w.float()).abs().max().item() <= 2.0 ** -5 * span

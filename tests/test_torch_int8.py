@@ -22,7 +22,8 @@ from macaque_tpu.nn.pallas_int8 import (
 from macaque_tpu.nn.swin import SwinConfig as JSwinConfig
 from macaque_tpu_torch import kernels
 from macaque_tpu_torch import nn as tnn
-from macaque_tpu_torch.nn.convert import swin_maskrcnn_from_jax, vitpose_from_jax
+from macaque_tpu_torch.nn.convert import (
+    swin_backbone_from_jax, swin_maskrcnn_from_jax, vitpose_from_jax)
 from macaque_tpu_torch.nn.int8 import (
     fma_f32, quant_int8_matmul, quant_int8_matmul_reference,
     quant_int8_matmul_split, quantize_rows, quantize_rows_reference)
@@ -196,6 +197,54 @@ def test_quantize_swin_matches_jax_tree(swin_int8):
         for buf in ("weight_q", "wscale", "bias"):
             torch.testing.assert_close(getattr(m, buf), getattr(ref[name], buf),
                                        rtol=0, atol=0)
+
+
+def _bf16_detector():
+    return tnn.SwinMaskRCNN(tnn.DetectorConfig(
+        swin=SwinConfig(**SWIN, compute_dtype=torch.bfloat16),
+        compute_dtype=torch.bfloat16, **DET), device="cpu")
+
+
+@pytest.mark.parametrize("bare", [False, True], ids=["detector", "backbone"])
+def test_quantize_swin_bf16_model_from_float32_source(swin_int8, bare):
+    """A bf16 model holds bf16-rounded weights; quantized from its float32
+    state dict it gets exactly JAX's codes, wscale and bias, in a detector
+    (keys ``backbone.stages...``) or a bare backbone (``stages...``)."""
+    v, qv, _ = swin_int8
+    sd = swin_maskrcnn_from_jax(v)
+    ref = _int8_layers(load(_int8_detector(), swin_maskrcnn_from_jax(qv)))
+    tm = load(_bf16_detector(), sd)
+    if bare:
+        bb = tm.backbone
+        assert bb.stages[0].blocks[0].attn.w_msa.qkv.weight.dtype == torch.bfloat16
+        quantize_swin_(bb, swin_backbone_from_jax(v["params"]["backbone"]))
+        ref = {n[len("backbone."):]: m for n, m in ref.items()}
+        layers = _int8_layers(bb)
+    else:
+        quantize_swin_(tm, sd)
+        layers = _int8_layers(tm)
+    assert len(layers) == 4 * sum(SWIN["depths"]) and layers.keys() == ref.keys()
+    for name, m in layers.items():
+        for buf in ("weight_q", "wscale", "bias"):
+            torch.testing.assert_close(getattr(m, buf), getattr(ref[name], buf),
+                                       rtol=0, atol=0)
+
+
+def test_quantizers_refuse_bf16_weights_without_source(swin_int8):
+    """Without a float32 source the codes would come from bf16-rounded
+    weights: both quantizers refuse, and leave the model as it was."""
+    v, _, _ = swin_int8
+    det = load(_bf16_detector(), swin_maskrcnn_from_jax(v))
+    with pytest.raises(ValueError, match="float32"):
+        quantize_swin_(det)
+    with pytest.raises(ValueError, match="float32"):
+        quantize_swin_(det.backbone)
+    pose = load(tnn.ViTPose(tnn.VitPoseConfig(**VIT, compute_dtype=torch.bfloat16),
+                            device="cpu"), vitpose_from_jax(_vit_variables()))
+    with pytest.raises(ValueError, match="float32"):
+        quantize_vitpose_(pose)
+    assert not _int8_layers(det) and not _int8_layers(pose)
+    assert det.backbone.cfg.quantize is None and pose.cfg.quantize is None
 
 
 def _codes(inputs):

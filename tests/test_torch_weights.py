@@ -9,12 +9,15 @@ import torch
 
 from macaque_tpu_torch import nn as tnn
 from macaque_tpu_torch.core.device import resolve_device
+from macaque_tpu_torch.nn.convert import (
+    swin_backbone_from_jax, swin_maskrcnn_from_jax)
 from macaque_tpu_torch.nn.quant import Int8Linear, quantize_dense
-from macaque_tpu_torch.nn.swin import SwinConfig
+from macaque_tpu_torch.nn.swin import SwinBackbone, SwinConfig
 from macaque_tpu_torch.pipeline.perception import TorchPerception
 from macaque_tpu_torch.pipeline.weights import (
     ServingTier, build_torch_perception, load_checkpoint, serving_tier)
-from tests.torch_parity import DET, SWIN, TTinyResNet, VIT
+from tests.torch_parity import (
+    DET, SWIN, TTinyResNet, VIT, jax_detector, random_variables, torch_detector)
 
 TIER_ENV = ("MACAQUE_TPU_INT8", "MACAQUE_TPU_SERVING", "MACAQUE_TPU_FAST",
             "MACAQUE_TPU_DET_TARGET")
@@ -153,3 +156,30 @@ def test_build_torch_perception_fast_tier(small_checkpoints, monkeypatch):
         torch.testing.assert_close(m.weight_q, wq, rtol=0, atol=0)
         torch.testing.assert_close(m.wscale, ws, rtol=0, atol=0)
         torch.testing.assert_close(m.bias, pose_sd[f"{name}.bias"], rtol=0, atol=0)
+
+
+def test_swin_converters_share_the_backbone():
+    """The detector converter's backbone keys are the bare-backbone
+    converter's under ``backbone.``; each state dict loads strictly into its
+    model, and the bare backbone equals the detector's."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    v = random_variables(jax_detector(), jnp.zeros((1, 128, 96, 3), jnp.float32),
+                         seed=8)
+    det_sd = swin_maskrcnn_from_jax(v)
+    bare_sd = swin_backbone_from_jax(v["params"]["backbone"])
+    prefixed = swin_backbone_from_jax(v["params"]["backbone"], "backbone.")
+    assert list(det_sd)[:len(prefixed)] == list(prefixed)
+    assert list(prefixed) == [f"backbone.{k}" for k in bare_sd]
+    for k, t in prefixed.items():
+        torch.testing.assert_close(det_sd[k], t, rtol=0, atol=0)
+    det = torch_detector()
+    det.load_state_dict(det_sd, strict=True)
+    bb = SwinBackbone(SwinConfig(**SWIN), device="cpu")
+    bb.load_state_dict(bare_sd, strict=True)
+    img = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(1, 64, 64, 3)).astype(np.float32))
+    with torch.no_grad():
+        for a, b in zip(bb(img), det.backbone(img)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
