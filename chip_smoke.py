@@ -10,8 +10,10 @@ Phases, one line each with elapsed seconds:
   2. build   - every csrc/*.cu kernel through one nvcc call;
   3. kernels - each kernel against its plain PyTorch version at the shapes
                of its path, on the card, with times (CUDA events); the
-               fused Swin block (K6) with the parity detector's own
-               backbone weights;
+               two attention kernels (K1, K4) with their registers and
+               spills from the build log and their resident blocks per
+               SM; the fused Swin block (K6) with the parity detector's
+               own backbone weights;
   4. main    - stage 1 (detect -> track -> pose -> ID) through
                ``pipeline.step1.process_camera`` at full model width with
                random weights, over 2 chunks of 16 frames of 2048x1536,
@@ -139,6 +141,19 @@ def phase_build():
     kernels.library()
 
 
+def attention_resources(name):
+    """Log what holds the attention kernel ``name`` back on an SM: its
+    registers and spills as ptxas reported them in this run's build, and
+    the blocks one SM keeps resident (the kernel's occupancy query)."""
+    from macaque_tpu_torch import kernels
+
+    st = kernels.ptxas_stats(f"{name}_kernel")
+    regs = ("not in this run's build log" if not st else
+            f"{st.get('registers')} registers, spill stores "
+            f"{st.get('spill_stores')} B, spill loads {st.get('spill_loads')} B")
+    log(f"{name}: {regs}; {kernels.resident_blocks(name)} resident blocks per SM")
+
+
 def check_attention(gen):
     """K1 at the pose chunk's shape: 16 frames x 8 detections x 2 flips
     sequences of ViTPose-huge (N=192, 16 heads, d=80) packed qkv."""
@@ -160,6 +175,7 @@ def check_attention(gen):
     b, by = bound_ms(n_bytes, 4.0 * B * H * N * N * D)
     log(f"packed_attention {tuple(qkv.shape)}: kernel {ms:.4f} ms, plain "
         f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b:.4f} ms ({by})")
+    attention_resources("packed_attention")
     return dict(name="packed_attention", route="cuda",
                 source="macaque_tpu_torch/csrc/packed_attention.cu",
                 replaces="macaque_tpu/nn/pallas_attention.py:137",
@@ -503,18 +519,18 @@ ATTN_SHAPE = (64, 192, 16, 80)
 
 
 def check_unpacked_attention(gen):
-    """K4 at (64, 192, 16, 80) bf16, through both JAX entry points (one
-    kernel, one block per batch element and head), against
-    ``attention_reference``."""
+    """K4 at (64, 192, 16, 80) bf16, through its three entry points (both
+    JAX kernels and the dispatcher: one kernel, one block per batch element
+    and head), against ``attention_reference``."""
     import torch.nn.functional as F
     from macaque_tpu_torch.nn.attention import (
-        attention_reference, fused_attention, fused_attention_blocked)
+        attention, attention_reference, fused_attention,
+        fused_attention_blocked)
 
     q, k, v = (randn_bf16(gen, *ATTN_SHAPE) for _ in range(3))
     ref = attention_reference(q, k, v)
-    err = max(max_err(fused_attention(q, k, v), ref, "fused_attention"),
-              max_err(fused_attention_blocked(q, k, v), ref,
-                      "fused_attention_blocked"))
+    err = max(max_err(fn(q, k, v), ref, fn.__name__) for fn in
+              (fused_attention, fused_attention_blocked, attention))
     ms = cuda_ms(lambda: fused_attention(q, k, v), reps=20)
     plain = cuda_ms(lambda: attention_reference(q, k, v), reps=5)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -523,6 +539,7 @@ def check_unpacked_attention(gen):
     b, by = bound_ms(4 * q.numel() * 2, 4.0 * B * H * N * N * D)
     log(f"attention {ATTN_SHAPE}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
         f"sdpa {lib:.4f} ms, bound {b:.4f} ms ({by})")
+    attention_resources("attention")
     return dict(name="attention", route="cuda",
                 source="macaque_tpu_torch/csrc/attention.cu",
                 replaces="macaque_tpu/nn/pallas_attention.py:39",

@@ -1,10 +1,12 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 All ``csrc/*.cu`` sources go through one ``nvcc`` call into one shared
-library with a plain C interface, loaded with ``ctypes``. The build runs
-at first use, into ``_build/`` beside this file (override with
-``MACAQUE_TPU_TORCH_BUILD``), and is reused while the sources are
-unchanged: the library's name carries a hash of their contents.
+library with a plain C interface, loaded with ``ctypes``; the headers
+beside them (``csrc/*.cuh``, such as ``attention_core.cuh``, the attention
+template of K1 and K4) are included by the sources. The build runs at
+first use, into ``_build/`` beside this file (override with
+``MACAQUE_TPU_TORCH_BUILD``), and is reused while the sources and headers
+are unchanged: the library's name carries a hash of their contents.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into an exception. ``LAUNCHES`` holds
@@ -18,6 +20,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,7 +46,13 @@ def reset_launches() -> None:
 
 
 def sources() -> list[str]:
+    """The files nvcc compiles: ``csrc/*.cu``, without the headers."""
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _hashed_files() -> list[str]:
+    """What the library is built from: the sources and the headers."""
+    return sorted(sources() + glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
 def _nvcc() -> str:
@@ -57,7 +66,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256(ARCH.encode())
-    for src in sources():
+    for src in _hashed_files():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
     return os.path.join(BUILD_DIR, f"libmacaque_kernels_{h.hexdigest()[:16]}.so")
@@ -104,12 +113,49 @@ def library() -> ctypes.CDLL:
             lib.macaque_window_attention.restype = i
             lib.macaque_attention.argtypes = [p, p, p, p, i, i, i, i, f, p]
             lib.macaque_attention.restype = i
+            for fn in (lib.macaque_attention_blocks_per_sm,
+                       lib.macaque_packed_attention_blocks_per_sm):
+                fn.argtypes = [ctypes.POINTER(i)]
+                fn.restype = i
             lib.macaque_swin_block_slots.argtypes = [i, ctypes.POINTER(i)]
             lib.macaque_swin_block_slots.restype = i
             lib.macaque_swin_block.argtypes = [p] * 18 + [i] * 5 + [f, p]
             lib.macaque_swin_block.restype = i
             _lib = lib
     return _lib
+
+
+def resident_blocks(name: str) -> int:
+    """Blocks of the attention kernel ``name`` ("attention" or
+    "packed_attention") that one SM of the current device keeps resident."""
+    n = ctypes.c_int(0)
+    query = getattr(library(), f"macaque_{name}_blocks_per_sm")
+    check(query(ctypes.byref(n)), f"{name} occupancy")
+    return n.value
+
+
+def ptxas_stats(kernel: str, log: str | None = None) -> dict | None:
+    """Registers and spill bytes that ptxas reported (``-Xptxas -v``) for
+    the ``__global__`` function named ``kernel`` in ``log`` (default: this
+    process's build log), or None where the log does not name it."""
+    tag = f"{len(kernel)}{kernel}"     # its length-prefixed mangled name
+    stats, mine, props = None, False, False
+    for line in (build_log if log is None else log).splitlines():
+        if "Compiling entry function" in line:
+            mine = tag in line
+            if mine:
+                stats = {}
+        elif "Function properties for" in line:
+            props = mine and tag in line
+        elif mine:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                              line)
+            if spill and props:
+                stats["spill_stores"], stats["spill_loads"] = map(int, spill.groups())
+            used = re.search(r"Used (\d+) registers", line)
+            if used:
+                stats.setdefault("registers", int(used.group(1)))
+    return stats
 
 
 def check(err: int, name: str) -> None:

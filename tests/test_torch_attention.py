@@ -18,6 +18,8 @@ from macaque_tpu_torch.nn.attention import (
     attention, attention_reference, fused_attention, fused_attention_blocked,
     packed_attention, packed_attention_reference)
 
+from attention_cases import cancelling_qkv
+
 
 def _qkv(seed, B, N, H, D):
     return np.random.default_rng(seed).normal(size=(B, N, 3 * H * D)).astype(
@@ -126,3 +128,32 @@ def test_unpacked_wrappers_refuse_other_devices(fn):
     t = torch.empty((1, 192, 16, 80), device="meta")
     with pytest.raises(ValueError):
         fn(t, t, t)
+
+
+def test_split_p_keeps_f32_accuracy_where_values_cancel():
+    """K4 keeps P at f32 precision on the card by splitting it into two bf16
+    terms, hi = bf16(P) and lo = bf16(P - hi), and summing hi V + lo V in
+    f32 (csrc/attention_core.cuh); the kernel cannot run here, so this
+    emulates its arithmetic in f32 torch against JAX's all-f32
+    ``fused_attention`` (interpret mode) on inputs whose value rows cancel
+    (max |v| 66 times the largest output). hi + lo carries P to
+    16 significant bits (|P - hi - lo| <= 2^-16 P); the cancellation
+    multiplies that by the |v|-to-output ratio, and f32 summation noise
+    adds about 2^-15, so the split must stay within 2^-12 of the largest
+    output (seen: 2^-13.5). P rounded once to bf16 (2^-8 P) lands
+    near 2^-4: outside 2^-12, and outside the card's 2^-6 tolerance too."""
+    q, k, v = cancelling_qkv(0, 2, 192, 2, 80)
+    want = np.asarray(pa.fused_attention(*map(jnp.asarray, (q, k, v)),
+                                         interpret=True))
+    qh, kh, vh = (torch.from_numpy(t).transpose(1, 2) for t in (q, k, v))
+    s = (qh @ kh.transpose(-1, -2)) * (80 ** -0.5)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = p / p.sum(-1, keepdim=True)
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+    split = (hi @ vh + lo @ vh).transpose(1, 2).numpy()
+    single = (hi @ vh).transpose(1, 2).numpy()
+    top = np.abs(want).max()
+    assert np.abs(v).max() >= 50 * top             # the values do cancel
+    assert np.abs(split - want).max() <= 2.0 ** -12 * top
+    assert np.abs(single - want).max() > 2.0 ** -6 * top

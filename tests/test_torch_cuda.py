@@ -23,6 +23,8 @@ from macaque_tpu_torch.nn.roialign import (
     WINDOW_BUCKETS, roi_align_windows, roi_align_windows_reference,
     window_inputs)
 
+from attention_cases import cancelling_qkv
+
 pytestmark = pytest.mark.cuda
 STRIDES = (4, 8, 16, 32)
 
@@ -44,6 +46,16 @@ def _close(got, want):
 
 def test_packed_attention_kernel(card):
     x = np.random.default_rng(0).normal(size=(8, 192, 3 * 1280))
+    x = torch.from_numpy(x).to(card, torch.bfloat16)
+    n = kernels.LAUNCHES["packed_attention"]
+    _close(packed_attention(x, 16), packed_attention_reference(x, 16))
+    assert kernels.LAUNCHES["packed_attention"] == n + 1
+
+
+# one sequence, and an odd count (48 blocks of 16 heads): K1 at both ends
+@pytest.mark.parametrize("B", [1, 3])
+def test_packed_attention_kernel_batch_sizes(card, B):
+    x = np.random.default_rng(10 + B).normal(size=(B, 192, 3 * 1280))
     x = torch.from_numpy(x).to(card, torch.bfloat16)
     n = kernels.LAUNCHES["packed_attention"]
     _close(packed_attention(x, 16), packed_attention_reference(x, 16))
@@ -203,6 +215,42 @@ def test_attention_kernel(card, fn, name):
     n = kernels.LAUNCHES["attention"]
     _close(fn(q, k, v), attention_reference(q, k, v))
     assert kernels.LAUNCHES["attention"] == n + 1
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("fn", [fused_attention, fused_attention_blocked,
+                                attention])
+def test_attention_kernel_batch_sizes(card, fn, B):
+    rng = np.random.default_rng(20 + B)
+    q, k, v = (_bf16(card, rng, B, 192, 16, 80) for _ in range(3))
+    n = kernels.LAUNCHES["attention"]
+    _close(fn(q, k, v), attention_reference(q, k, v))
+    assert kernels.LAUNCHES["attention"] == n + 1
+
+
+@pytest.mark.parametrize("fn", [fused_attention, fused_attention_blocked,
+                                attention])
+def test_attention_kernel_keeps_p_in_f32(card, fn):
+    """Value rows that cancel (max |v| some 50-110 times the output,
+    tests/attention_cases.py): P rounded once to bf16, as K1 and the
+    packed plain version round it, lands outside 2^-6 of the largest
+    output; K4's hi + lo split of P holds attention_reference to it."""
+    B, N, H, D = 3, 192, 16, 80
+    q, k, v = (torch.from_numpy(t).to(card, torch.bfloat16)
+               for t in cancelling_qkv(8, B, N, H, D))
+    want = attention_reference(q, k, v)
+    top = want.float().abs().max().item()
+    packed = torch.cat([t.reshape(B, N, H * D) for t in (q, k, v)], -1)
+    single = packed_attention_reference(packed, H).reshape(B, N, H, D)
+    assert (single.float() - want.float()).abs().max().item() > 2.0 ** -6 * top
+    _close(fn(q, k, v), want)
+
+
+# 67.6 KB of shared memory and at most 168 registers a thread: 3 blocks of
+# 4 warps on an SM (csrc/attention_core.cuh)
+@pytest.mark.parametrize("name", ["attention", "packed_attention"])
+def test_attention_kernels_keep_three_blocks_per_sm(card, name):
+    assert kernels.resident_blocks(name) >= 3
 
 
 def test_attention_refuses_what_it_was_not_built_for(card):
