@@ -10,8 +10,8 @@ Phases, one line each with elapsed seconds:
   2. build   - every csrc/*.cu kernel through one nvcc call;
   3. kernels - each kernel against its plain PyTorch version at the shapes
                of its path, on the card, with times (CUDA events); the
-               two attention kernels (K1, K4) with their registers and
-               spills from the build log and their resident blocks per
+               tensor-core kernels (K1, K4, K5b, K6) with their registers
+               and spills from the build log and their resident blocks per
                SM; the fused Swin block (K6) with the parity detector's
                own backbone weights;
   4. main    - stage 1 (detect -> track -> pose -> ID) through
@@ -22,12 +22,14 @@ Phases, one line each with elapsed seconds:
                and the ``fast`` tier (int8 pose, no flip test, 640 detector
                target), then the parity detector with the Swin window
                attention kernel on one 16-frame chunk; each against its
-               plain path. Then the two entry points of the JAX package's
+               plain path. Then the three entry points of the JAX package's
                that drive the other kernels: the Swin-S trunk with every
                block fused (``nn.swin_block.swin_backbone_apply_fused``,
                K6) on one 16-frame detector chunk, against ``SwinBackbone``,
-               and the unpacked attention dispatcher
-               (``nn.attention.attention``, K4) at the ViT-huge crop shape.
+               the unpacked attention dispatcher
+               (``nn.attention.attention``, K4) at the ViT-huge crop shape,
+               and the split int8 matmul (``nn.int8.quant_int8_matmul_split``,
+               K5a) at ViT-huge's fc1.
 The second-to-last line is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``. Any failed phase raises, so the
 script exits non-zero and prints no result; so it does without a CUDA
@@ -141,17 +143,26 @@ def phase_build():
     kernels.library()
 
 
-def attention_resources(name):
-    """Log what holds the attention kernel ``name`` back on an SM: its
-    registers and spills as ptxas reported them in this run's build, and
-    the blocks one SM keeps resident (the kernel's occupancy query)."""
+def ptxas_summary(kernel):
+    """The registers and spills of the ``__global__`` function ``kernel`` as
+    ptxas reported them in this run's build."""
     from macaque_tpu_torch import kernels
 
-    st = kernels.ptxas_stats(f"{name}_kernel")
-    regs = ("not in this run's build log" if not st else
+    st = kernels.ptxas_stats(kernel)
+    return ("not in this run's build log" if not st else
             f"{st.get('registers')} registers, spill stores "
             f"{st.get('spill_stores')} B, spill loads {st.get('spill_loads')} B")
-    log(f"{name}: {regs}; {kernels.resident_blocks(name)} resident blocks per SM")
+
+
+def kernel_resources(name, kernel=None):
+    """Log what holds the kernel ``name`` back on an SM: its registers and
+    spills (of its ``__global__`` function ``kernel``, default
+    ``<name>_kernel``), and the blocks one SM keeps resident (the kernel's
+    occupancy query)."""
+    from macaque_tpu_torch import kernels
+
+    log(f"{name}: {ptxas_summary(kernel or f'{name}_kernel')}; "
+        f"{kernels.resident_blocks(name)} resident blocks per SM")
 
 
 def check_attention(gen):
@@ -175,7 +186,7 @@ def check_attention(gen):
     b, by = bound_ms(n_bytes, 4.0 * B * H * N * N * D)
     log(f"packed_attention {tuple(qkv.shape)}: kernel {ms:.4f} ms, plain "
         f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b:.4f} ms ({by})")
-    attention_resources("packed_attention")
+    kernel_resources("packed_attention")
     return dict(name="packed_attention", route="cuda",
                 source="macaque_tpu_torch/csrc/packed_attention.cu",
                 replaces="macaque_tpu/nn/pallas_attention.py:137",
@@ -302,10 +313,10 @@ def randn_bf16(gen, *shape):
 
 
 def check_quantize_rows(gen):
-    """K5a at the main path's shapes: the inputs of qkv/proj/fc1 (K = 1280),
-    which Int8Linear sends through the split route, on both tiers' pose
-    chunks; also K = 5120 (fc2's input) for scale. The entry is one call at
-    (49152, 1280)."""
+    """K5a at the int8 layers' shapes: the inputs of qkv/proj/fc1 (K = 1280)
+    on both tiers' pose chunks and of fc2 (K = 5120); the split route
+    (``quant_int8_matmul_split``) runs it, and K5b runs its device code as
+    its first pass. The entry is one call at (49152, 1280)."""
     from macaque_tpu_torch.nn.int8 import quantize_rows, quantize_rows_reference
 
     entry = None
@@ -350,10 +361,11 @@ def check_int8_matmul(gen):
     shape (stage-3 fc1, 384 -> 1536, 16 frames of 38x50 tokens); the split
     route likewise where K <= 2048. Per layer (log lines): K5b, the split
     route, the PyTorch chain around torch._int_mm, _int_mm alone and the bf16
-    cuBLAS product. Int8Linear, on its route, is held bit for bit to the JAX
-    default tier's chain (``int8_matmul_reference``) at every shape. Then one block's four layers, each way, as one timed
-    sequence. The entry is the call the main path makes: fc2 at M = 49,152
-    (Int8Linear sends K = 1280 through the split route)."""
+    cuBLAS product. Int8Linear (K5b at every K) is held bit for bit to the
+    JAX default tier's chain (``int8_matmul_reference``) at every shape.
+    Then K5b's registers, spills and resident blocks, and one block's four
+    layers, each way, as one timed sequence. The entry is fc2 at
+    M = 49,152, the shape K5b's earlier times were measured at."""
     import torch.nn.functional as F
     from macaque_tpu_torch.nn.int8 import (
         quant_int8_matmul, quant_int8_matmul_reference, quant_int8_matmul_split)
@@ -375,10 +387,10 @@ def check_int8_matmul(gen):
                   f"quant_int8_matmul_split {name} M={M}")
         m = Int8Linear(K, N, device="cuda")
         m.weight_q, m.wscale, m.bias = wq, ws, b
-        # the layer the tiers run: its route without a bias, then the bias
-        # in bf16, as the JAX default tier's chain
+        # the layer the tiers run: K5b with the bias added after the cast
+        # (its out_bias epilogue), the JAX default tier's chain
         exact(m(x), int8_matmul_reference(x, wq, ws, b),
-              f"Int8Linear ({m.route} route) {name} M={M}")
+              f"Int8Linear (K5b) {name} M={M}")
         if M == FAST_ROWS:
             continue
         ms = cuda_ms(lambda: quant_int8_matmul(x, wq, ws, b), reps=10)
@@ -409,11 +421,16 @@ def check_int8_matmul(gen):
         if name in VIT_LAYERS:
             block.append((x, m, w16))
 
+    kernel_resources("quant_int8_matmul", "int8_gemm_kernel")
+
     # one block's four layers on distinct inputs, each way one timed sequence
     args = [(x, m.weight_q, m.wscale, m.bias) for x, m, _ in block]
     times = {
-        "Int8Linear's routes": cuda_ms(lambda: [m(x) for x, m, _ in block]),
+        "Int8Linear (K5b)": cuda_ms(lambda: [m(x) for x, m, _ in block]),
         "K5b": cuda_ms(lambda: [quant_int8_matmul(*a) for a in args]),
+        "split route at K = 1280, K5b for fc2 (the earlier routing)": cuda_ms(
+            lambda: [quant_int8_matmul_split(*a) for a in args[:3]]
+            + [quant_int8_matmul(*args[3])]),
         "torch chain": cuda_ms(lambda: [int8_library(*a) for a in args]),
         "plain": cuda_ms(lambda: [quant_int8_matmul_reference(*a)
                                   for a in args], reps=2),
@@ -539,7 +556,7 @@ def check_unpacked_attention(gen):
     b, by = bound_ms(4 * q.numel() * 2, 4.0 * B * H * N * N * D)
     log(f"attention {ATTN_SHAPE}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
         f"sdpa {lib:.4f} ms, bound {b:.4f} ms ({by})")
-    attention_resources("attention")
+    kernel_resources("attention")
     return dict(name="attention", route="cuda",
                 source="macaque_tpu_torch/csrc/attention.cu",
                 replaces="macaque_tpu/nn/pallas_attention.py:39",
@@ -621,9 +638,11 @@ def check_swin_block(gen, backbone):
     ``SwinBlock.forward`` (cuBLAS Dense layers, plain attention) on the
     same feature maps."""
     from macaque_tpu_torch.nn.swin_block import (
-        block_inputs, fused_swin_block, fused_swin_block_reference)
+        _workspace_slots, block_inputs, block_layout, fused_swin_block,
+        fused_swin_block_reference)
 
     calls = swin_block_calls(gen, backbone)
+    log(f"swin_block: {ptxas_summary('swin_block_kernel')}")
     err, n_bytes, n_flop, first = 0.0, 0.0, 0.0, 0
     for st, stage in enumerate(backbone.stages):
         heads = SWIN_STAGES[st][1]
@@ -650,7 +669,12 @@ def check_swin_block(gen, backbone):
             err = max(err, d)
         args = calls[first][2]
         ms = cuda_ms(lambda: fused_swin_block(*args), reps=5)
-        log(f"swin_block stage {st + 1}: kernel {ms:.4f} ms per call")
+        C = 32 * heads
+        per_sm = _workspace_slots(C, torch.device("cuda")) // \
+            torch.cuda.get_device_properties(0).multi_processor_count
+        log(f"swin_block stage {st + 1}: kernel {ms:.4f} ms per call; "
+            f"{block_layout(C)['smem_bytes']} B of shared memory, {per_sm} "
+            "resident blocks per SM")
         first += len(stage.blocks)
     for blk, x, (xw, tv, p, bias, mask, heads) in calls:
         nW, N, C = xw.shape
@@ -870,8 +894,8 @@ def phase_tiers(det, pose, idm, pose_sd, store, T, frames):
     """The serving tiers on the same camera: ``serving`` (512/128 detector
     budgets, int8 pose) and ``fast`` (the serving detector at a 640 target,
     int8 pose, no flip test); the int8 pose is quantized from the float32
-    weights ``pose_sd``, and its layers run K5a (the split route, K = 1280)
-    and K5b (fc2, K = 5120). Then the int8 pose against its plain path."""
+    weights ``pose_sd``, and its four int8 layers a block run K5b. Then the
+    int8 pose against its plain path."""
     import copy
 
     from macaque_tpu_torch.nn import DetectorConfig, SwinMaskRCNN
@@ -895,18 +919,18 @@ def phase_tiers(det, pose, idm, pose_sd, store, T, frames):
         log(f"{name} tier: det_target {tier.det_target}, flip test "
             f"{tier.flip_test}")
         runs[name] = run_camera(name, perception, store, T,
-                                ("quantize_rows", "quant_int8_matmul"))
+                                ("quant_int8_matmul",))
     check_int8_plain_path(pose8, frames, TorchPerception(
         det_s, pose8, idm, max_det=8))
     return runs
 
 
 def check_int8_plain_path(pose, frames, perception):
-    """The int8 pose on crops of ``frames`` with its int8 routes swapped for
-    their plain version. K5a, K5b and the split route equal their plain
-    versions bit for bit, and everything else is the same ops on the same
-    inputs, so the heatmaps must agree to 2^-10 of their range (headroom for
-    float32 reordering in the library's deconvolution)."""
+    """The int8 pose on crops of ``frames`` with K5b swapped for its plain
+    version. K5b equals its plain version bit for bit, and everything else
+    is the same ops on the same inputs, so the heatmaps must agree to 2^-10
+    of their range (headroom for float32 reordering in the library's
+    deconvolution)."""
     from unittest import mock
 
     from macaque_tpu_torch.nn import quant
@@ -921,9 +945,7 @@ def check_int8_plain_path(pose, frames, perception):
         crops = normalize_rgb(udp_crop(rgb, c, s)).reshape(-1, 256, 192, 3)
         hm = pose(crops).float()
         with mock.patch.object(quant, "quant_int8_matmul",
-                               quant_int8_matmul_reference), \
-                mock.patch.object(quant, "quant_int8_matmul_split",
-                                  quant_int8_matmul_reference):
+                               quant_int8_matmul_reference):
             hm_p = pose(crops).float()
     dh = (hm - hm_p).abs().max().item()
     span = (hm_p.max() - hm_p.min()).item()
@@ -1084,6 +1106,28 @@ def phase_attention_path(gen):
     return launches
 
 
+def phase_split_path(gen):
+    """``quant_int8_matmul_split``, the port of the JAX package's split int8
+    matmul (``pallas_int8.py:149``), at ViTPose-huge's fc1 on the serving
+    tier's pose chunk, with launches counted: it launches K5a, then
+    ``torch._int_mm`` and the epilogue; bit for bit against the plain
+    version."""
+    from macaque_tpu_torch import kernels
+    from macaque_tpu_torch.nn.int8 import (
+        quant_int8_matmul_reference, quant_int8_matmul_split)
+
+    K, N = VIT_LAYERS["fc1"]
+    x = randn_bf16(gen, POSE_ROWS, K)
+    wq, ws, b = int8_weights(gen, K, N)
+    kernels.reset_launches()
+    out = quant_int8_matmul_split(x, wq, ws, b)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(f"split int8 path ({POSE_ROWS}, {K}) x ({K}, {N}): launches {launches}")
+    exact(out, quant_int8_matmul_reference(x, wq, ws, b), "split int8 path")
+    return launches
+
+
 def phase_profile(perception, store, T):
     """One 16-frame chunk of process_camera under torch.profiler: device
     time by kernel, and device busy time against the wall clock."""
@@ -1149,6 +1193,7 @@ def main(argv=None) -> int:
         runs["fused_trunk"] = phase_fused_trunk(models[0], perception,
                                                 store.frames[:CHUNK])
         runs["attention"] = phase_attention_path(gen)
+        runs["split_int8"] = phase_split_path(gen)
         # each kernel's launches on the paths, each run counted alone
         launches = {k: sum(r[k] for r in runs.values()) for k in kernels.LAUNCHES}
         log(f"launches on the paths: {launches}")

@@ -45,9 +45,7 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ptx.cuh"
 
 namespace {
 
@@ -79,45 +77,6 @@ struct AttnShape {
   static constexpr int kSmemBytes = 2 * N * kStride * 2;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem)),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // (x0, x1) -> hi = bf16_rn(x), lo = bf16_rn(x - hi), packed as two A-fragment
 // registers
 __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
@@ -126,16 +85,6 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
   const float2 hf = __bfloat1622float2(h);
   hi = *reinterpret_cast<uint32_t*>(&h);
   lo = pack_bf16(__fsub_rn(x0, hf.x), __fsub_rn(x1, hf.y));
-}
-
-// D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // The body of one block: (sequence, head) = divmod(blockIdx.x, heads).
@@ -170,10 +119,8 @@ __device__ __forceinline__ void attention_block(const AttnArgs& a) {
   // this lane's ldmatrix row: for K (x4), matrices (keys +0, d +0), (+0, +8),
   // (+8, +0), (+8, +8) = b0, b1 of two n8 key tiles; for V (x4.trans),
   // (keys +0, d +0), (+8, +0), (+0, +8), (+8, +8) = b0, b1 of two n8 d tiles
-  const uint32_t kAddr =
-      smem_u32(sK + ((lane >> 4) * 8 + (lane & 7)) * KS + ((lane >> 3) & 1) * 8);
-  const uint32_t vAddr =
-      smem_u32(sV + (((lane >> 3) & 1) * 8 + (lane & 7)) * KS + (lane >> 4) * 8);
+  const uint32_t kAddr = smem_u32(sK + ldsm_b_row(lane) * KS + ldsm_b_col(lane) * 8);
+  const uint32_t vAddr = smem_u32(sV + ldsm_a_row(lane) * KS + ldsm_a_col(lane) * 8);
 
 #pragma unroll 1
   for (int rt = warp; rt < N / 16; rt += kWarps) {

@@ -20,45 +20,86 @@
 // far above the ~295 FLOP per byte where the bf16 tensor cores outrun HBM.
 // The TPU kernel keeps the block's weights resident in VMEM; shared memory
 // cannot (14.2 MB at C = 768), so here they stream from L2, which holds any
-// one block's weights (50 MB).
+// one block's weights (50 MB), through shared memory.
 //
-// Design (simple first): a persistent grid -- as many 256-thread blocks as
-// fit on the card -- walks the windows. A window's 49 tokens are padded to
-// 64 rows (four m16 tiles): pad rows enter as zeros after LN1, and their
-// columns are excluded from every softmax (exp(-inf) = 0), so they never
-// touch a real row. Every Dense runs as 64 x 96 output tiles on mma.sync
-// m16n8k16 bf16 with f32 accumulation (8 warps, 2 x 4, each 32 x 24), A
-// from shared memory, B fragments straight from the (N, K) weight in global
-// memory (L2/L1). Shared memory holds two 64 x C bf16 panels: LN1's output,
-// then r1; the attention output, then LN2's output. Attention runs head by
-// head: the qkv Dense of one head writes its Q, K and V^T (64 x 32 each) to
-// shared memory, four warps each take 16 query rows with the scores in
-// registers, and the probabilities feed P V as the A operand without leaving
-// registers. The GELU activation (64 x 4C) does not fit shared memory at
-// C = 768: fc1 writes it to this block's slot of a global workspace (a few
-// hundred KB, L2-resident), and fc2 reads it back as its A operand.
+// Design: a persistent grid -- as many 256-thread blocks as the card keeps
+// resident -- walks the windows. A window's 49 tokens are padded to 64 rows
+// (four m16 tiles): pad rows enter as zeros after LN1, and their columns are
+// excluded from every softmax (exp(-inf) = 0), so they never touch a real
+// row.
+// - Every Dense runs as 64 x NT output tiles (NT = 192; 96 for proj and fc2
+//   at C = 96) on mma.sync m16n8k16 bf16 with f32 accumulation, 8
+//   warps (2 x 4, each 32 x NT/4). The weight's (NT x 32) K slabs stream
+//   through a 3-stage ring in shared memory by cp.async.cg 16-byte copies,
+//   one __syncthreads a slab, and all 8 warps take their B fragments from
+//   it by ldmatrix.x4 (x2 for a third n8 tile); no B fragment comes from
+//   global memory. The A operand is a panel resident in shared memory (qkv,
+//   fc1) or, where it lives in the global slot (proj, fc2), its (64 x 32)
+//   slabs ride in the same ring; A fragments come by ldmatrix.x4 too. Rows
+//   are padded by 16 bytes (80-byte slab rows, C + 8 panel rows, C a
+//   multiple of 96), so every ldmatrix phase reads 8 distinct 16-byte bank
+//   groups. The epilogue loads its biases and residuals before it hands on
+//   any output, so those loads overlap.
+// - Shared memory holds one 64 x C bf16 panel (LN1's output, then LN2's)
+//   and a 61,440-byte scratch region: the ring during a Dense, two heads'
+//   Q, K and V^T during attention. The attention output, r1 and the GELU
+//   activation (64 x 4C, which does not fit at C = 768) go to this block's
+//   slot of a global workspace, 64 x 5C bf16 (the attention output shares
+//   the activation's rows: fc1 writes them after proj has read it), and
+//   come back through the ring (proj, fc2) or by plain loads (LN2, the fc2
+//   residual). That is 112 KB at C = 384, where 75 % of the FLOP are: two
+//   blocks fit an SM (__launch_bounds__(256, 2) caps a thread at 128
+//   registers), so one block's LayerNorm, softmax and barriers overlap the
+//   other's tensor-core work. At C = 768 one block fits (161 KB).
+// - What holds it back on the H100: instruction issue, not the tensor
+//   cores or L2. Variants built on the card showed it: without the weight
+//   copies the time does not move, twice the mma add little, one block an
+//   SM (no spills) is much slower at C <= 384, and computing the copies'
+//   offsets once a tile, not every slab, made it faster. A mma is one
+//   instruction in dozens; the exact GELU of the fc1 epilogue (an IEEE
+//   division and expf an element) is the largest share of the rest.
+// - Attention takes two heads at a time on all 8 warps: one qkv tile of 192
+//   columns gives both heads' Q, K and V^T (64 x 32 each), four warps a
+//   head each take 16 query rows with the scores in registers, and the
+//   probabilities feed P V as the A operand without leaving registers. An
+//   odd last head (C = 96: 3 heads) leaves warps 4-7 idle for that pair.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "ptx.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps
+constexpr int kMinBlocks = 2;  // resident blocks per SM the design holds at C <= 384
 constexpr int kRows = 64;      // a window's tokens, padded
 constexpr int kTok = 49;       // a 7 x 7 window
 constexpr int kHd = 32;        // head width
-constexpr int kTile = 96;      // output columns of one Dense pass
+constexpr int kTile = 96;      // output columns of a tile where C % 192 != 0 (C = 96)
+constexpr int kWide = 192;     // output columns of a tile: qkv (two heads), fc1, and
+                               // proj and fc2 where C % 192 == 0
+constexpr int kSlab = 32;      // K elements (64 bytes) of a ring stage
+constexpr int kSlabStride = kSlab + 8;  // ring rows (bf16)
+constexpr int kChunks = kSlab / 8;      // 16-byte copies a slab row
+constexpr int kStages = 3;
 constexpr int kQStride = kHd + 8;     // sQ, sK rows (bf16)
 constexpr int kVStride = kRows + 8;   // sVt rows (bf16)
+constexpr int kHeadElems = 2 * kRows * kQStride + kHd * kVStride;  // one head's Q, K, V^T
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+// the scratch region: the widest ring (NT = 192 with A staged), or two
+// heads' Q, K, V^T
+constexpr int kScratchBytes = cmax(kStages * (kWide + kRows) * kSlabStride, 2 * kHeadElems) * 2;
+static_assert(kScratchBytes == 61440, "the layout mirror in nn/swin_block.py");
 
 __host__ __device__ constexpr int panel_stride(int C) { return C + 8; }
 
 __host__ __device__ constexpr size_t smem_bytes(int C) {
-  return (size_t)2 * kRows * panel_stride(C) * 2 + 2 * kRows * kQStride * 2 +
-         kHd * kVStride * 2;
+  return (size_t)kRows * panel_stride(C) * 2 + kScratchBytes;
 }
+
+// bf16 elements of a block's workspace slot: GELU(fc1) (64 x 4C; its first
+// 64 x C elements hold the attention output before fc1), then r1 (64 x C)
+__host__ __device__ constexpr size_t slot_elems(int C) { return (size_t)kRows * 5 * C; }
 
 struct Params {
   const __nv_bfloat16* x;
@@ -75,33 +116,13 @@ struct Params {
   float eps, scale;
 };
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t ldg32(const __nv_bfloat16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
 __device__ __forceinline__ float bf(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float rbf(float v) {  // round to bf16 and back
   return __bfloat162float(__float2bfloat16_rn(v));
 }
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-// bf16(acc) + bias in bf16: the Dense epilogue
-__device__ __forceinline__ float dense_out(float acc, __nv_bfloat16 b) {
-  return rbf(__fadd_rn(rbf(acc), bf(b)));
-}
-
-// D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// bf16(acc) + bias (a bf16 value) in bf16: the Dense epilogue
+__device__ __forceinline__ float dense_out(float acc, float b) {
+  return rbf(__fadd_rn(rbf(acc), b));
 }
 
 // 0.5 x (1 + erf(x / sqrt 2)) with the Abramowitz & Stegun 7.1.26 erf, as
@@ -146,63 +167,176 @@ __device__ void ln_row(const __nv_bfloat16* src, __nv_bfloat16* dst, int C,
   }
 }
 
-// One 64 x 96 output tile of a Dense: out[r][n] = sum_k A[r][k] W[wrow(n)][k]
-// for the tile's columns n = n0 .. n0 + 95; W is (rows, K) row-major (the
-// port's Linear layout, K contiguous: the B operand's layout). Warp (wm, wn)
-// owns rows 32 wm .. + 31 and columns n0 + 24 wn .. + 23. `epi(row, col, v0,
-// v1)` receives the f32 sums of columns col and col + 1.
-template <class Map, class Epi>
+// One 64 x NT output tile of a Dense: out[r][n] = sum_k A[r][k] W[wrow(n)][k]
+// for the tile's columns n = n0 .. n0 + NT - 1; W is (rows, K) row-major
+// (the port's Linear layout, K contiguous: the B operand's layout). A is a
+// panel in shared memory (kStageA false) or 64 rows in global memory whose
+// slabs ride in the ring beside W's (kStageA true). Warp (wm, wn) owns rows
+// 32 wm .. + 31 and columns n0 + NT/4 wn .. + NT/4 - 1. The epilogue rounds
+// each sum to bf16 and adds the bias bias[wrow(n)] in bf16 (dense_out);
+// with kRes it then adds the residual res[r * ldr + n] in f32 (zero for
+// r >= kTok). Biases and residuals are loaded before any output is passed
+// on, so the loads overlap. `epi(row, col, y0, y1)` receives the values of
+// columns col and col + 1, after a barrier that frees the ring (the scratch
+// region may be written). The caller makes sure nobody still reads the
+// scratch region when it is called.
+template <int NT, bool kStageA, bool kRes, class Map, class Epi>
 __device__ __forceinline__ void dense_tile(const __nv_bfloat16* A, int lda,
                                            const __nv_bfloat16* __restrict__ W,
-                                           int K, int n0, Map wrow, Epi epi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+                                           const __nv_bfloat16* __restrict__ bias,
+                                           int K, int n0, Map wrow,
+                                           const __nv_bfloat16* res, int ldr, Epi epi,
+                                           __nv_bfloat16* ring) {
+  constexpr int NJ = NT / 32;                    // n8 tiles a warp
+  constexpr int kB = NT * kSlabStride;           // a stage's W slab (elements)
+  constexpr int kStage = kB + (kStageA ? kRows * kSlabStride : 0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 2) * 32, wn = n0 + (warp & 3) * 24;
-  const __nv_bfloat16* a0 = A + (size_t)(wm + g) * lda + 2 * t;
-  const __nv_bfloat16* a1 = a0 + (size_t)16 * lda;
-  const size_t l8 = (size_t)8 * lda;
-  const __nv_bfloat16* bp[3];
+  const int wm = (warp >> 2) * 32, wn = (warp & 3) * (NT / 4);
+  const int nk = K / kSlab;
+
+  // This thread's 16-byte copies of a slab, their offsets worked out once a
+  // tile: copy i of W's slab is row tid / kChunks + i * kThreads / kChunks
+  // of the tile, 8 columns (tid % kChunks) * 8 on; A's slab takes one copy
+  // a thread at the same row and column.
+  constexpr int kBCopies = NT * kChunks;
+  constexpr int kBPer = (kBCopies + kThreads - 1) / kThreads;
+  static_assert(!kStageA || kRows * kChunks == kThreads, "one A copy a thread");
+  const int row0 = tid / kChunks, col0 = (tid % kChunks) * 8;
+  int boff[kBPer];
 #pragma unroll
-  for (int j = 0; j < 3; ++j) bp[j] = W + (size_t)wrow(wn + j * 8 + g) * K + 2 * t;
-  float acc[2][3][4];
+  for (int i = 0; i < kBPer; ++i)
+    boff[i] = wrow(n0 + min(row0 + i * (kThreads / kChunks), NT - 1)) * K + col0;
+  const int aoff = row0 * lda + col0;
+  const int soff = row0 * kSlabStride + col0;
+
+  auto load = [&](int st, int kt) {
+    __nv_bfloat16* sb = ring + st * kStage + soff;
+    const int k0 = kt * kSlab;
+#pragma unroll
+    for (int i = 0; i < kBPer; ++i)
+      if (kBCopies % kThreads == 0 || tid + i * kThreads < kBCopies)
+        cp_async16(sb + i * (kThreads / kChunks) * kSlabStride, W + boff[i] + k0);
+    if constexpr (kStageA) cp_async16(sb + kB, A + aoff + k0);
+  };
+
+  // this lane's ldmatrix addresses (bytes) in stage 0 / at k = 0
+  const uint32_t bAddr = smem_u32(ring + (wn + ldsm_b_row(lane)) * kSlabStride +
+                                  ldsm_b_col(lane) * 8);
+  uint32_t aAddr;
+  if constexpr (kStageA)
+    aAddr = smem_u32(ring + kB + (wm + ldsm_a_row(lane)) * kSlabStride + ldsm_a_col(lane) * 8);
+  else
+    aAddr = smem_u32(A + (wm + ldsm_a_row(lane)) * lda + ldsm_a_col(lane) * 8);
+  const int aRow16 = 16 * (kStageA ? kSlabStride : lda) * 2;  // bytes of 16 rows
+
+  float acc[2][NJ][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 3; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-#pragma unroll 4
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t a[2][4], b[3][2];
-    a[0][0] = ld32(a0 + k0);
-    a[0][1] = ld32(a0 + l8 + k0);
-    a[0][2] = ld32(a0 + k0 + 8);
-    a[0][3] = ld32(a0 + l8 + k0 + 8);
-    a[1][0] = ld32(a1 + k0);
-    a[1][1] = ld32(a1 + l8 + k0);
-    a[1][2] = ld32(a1 + k0 + 8);
-    a[1][3] = ld32(a1 + l8 + k0 + 8);
+    for (int j = 0; j < NJ; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      b[j][0] = ldg32(bp[j] + k0);
-      b[j][1] = ldg32(bp[j] + k0 + 8);
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kStages - 2>();  // slab kt has landed
+    __syncthreads();               // ... for every thread; slab kt - 1 is free
+    if (kt + kStages - 1 < nk) load((kt + kStages - 1) % kStages, kt + kStages - 1);
+    cp_async_commit();
+
+    const uint32_t st = (kt % kStages) * kStage * 2;
+    const uint32_t a0 = aAddr + (kStageA ? st : kt * kSlab * 2);
+#pragma unroll
+    for (int kk = 0; kk < kSlab; kk += 16) {
+      uint32_t a[2][4], b[NJ][2];
+      ldsm_x4(a[0], a0 + kk * 2);
+      ldsm_x4(a[1], a0 + aRow16 + kk * 2);
+#pragma unroll
+      for (int jp = 0; jp < NJ / 2; ++jp) {
+        uint32_t r[4];
+        ldsm_x4(r, bAddr + st + (jp * 16 * kSlabStride + kk) * 2);
+        b[2 * jp][0] = r[0];
+        b[2 * jp][1] = r[1];
+        b[2 * jp + 1][0] = r[2];
+        b[2 * jp + 1][1] = r[3];
+      }
+      if constexpr (NJ % 2) {
+        uint32_t r[2];
+        ldsm_x2(r, bAddr + st + ((NJ - 1) * 8 * kSlabStride + kk) * 2);
+        b[NJ - 1][0] = r[0];
+        b[NJ - 1][1] = r[1];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
     }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+
+  float bv[NJ][2];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int col = n0 + wn + j * 8 + 2 * t;
+    bv[j][0] = bf(bias[wrow(col)]);
+    bv[j][1] = bf(bias[wrow(col + 1)]);
+  }
+  __nv_bfloat162 rv[2][kRes ? NJ : 1][2];
+  if constexpr (kRes) {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < 3; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = wm + i * 16 + g + 8 * h;
+          rv[i][j][h] = row < kTok ? *reinterpret_cast<const __nv_bfloat162*>(
+                                         res + (size_t)row * ldr + n0 + wn + j * 8 + 2 * t)
+                                   : __floats2bfloat162_rn(0.f, 0.f);
+        }
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 3; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        epi(wm + i * 16 + g + 8 * h, wn + j * 8 + 2 * t, acc[i][j][2 * h],
-            acc[i][j][2 * h + 1]);
+      for (int h = 0; h < 2; ++h) {
+        float y0 = dense_out(acc[i][j][2 * h], bv[j][0]);
+        float y1 = dense_out(acc[i][j][2 * h + 1], bv[j][1]);
+        if constexpr (kRes) {
+          y0 = __fadd_rn(__low2float(rv[i][j][h]), y0);
+          y1 = __fadd_rn(__high2float(rv[i][j][h]), y1);
+        }
+        epi(wm + i * 16 + g + 8 * h, n0 + wn + j * 8 + 2 * t, y0, y1);
+      }
 }
 
 struct Identity {
   __device__ __forceinline__ int operator()(int n) const { return n; }
 };
+
+// proj or fc2: the 64 x C outputs of A (in the global slot) times W^T, plus
+// a residual, in tiles of 192 columns where C allows (half the tiles, each
+// slab step twice the mma a barrier), else 96
+template <class Epi>
+__device__ __forceinline__ void residual_dense(const __nv_bfloat16* A, int lda,
+                                               const __nv_bfloat16* W,
+                                               const __nv_bfloat16* bias, int K, int C,
+                                               const __nv_bfloat16* res, Epi epi,
+                                               __nv_bfloat16* ring) {
+  if (C % kWide == 0) {
+    for (int n0 = 0; n0 < C; n0 += kWide)
+      dense_tile<kWide, true, true>(A, lda, W, bias, K, n0, Identity(), res, C, epi, ring);
+  } else {
+    for (int n0 = 0; n0 < C; n0 += kTile)
+      dense_tile<kTile, true, true>(A, lda, W, bias, K, n0, Identity(), res, C, epi, ring);
+  }
+}
 
 // Attention of one head for query rows r0 .. r0 + 15 (one warp): scores in
 // registers, f32 softmax over the 49 real keys, P rounded to bf16, O = P V
@@ -290,15 +424,14 @@ __device__ __forceinline__ void head_attention(
   }
 }
 
-__global__ void __launch_bounds__(kThreads) swin_block_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks) swin_block_kernel(Params p) {
   const int C = p.C, CS = panel_stride(C), C4 = 4 * C;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // h, then r1
-  __nv_bfloat16* sB = sA + kRows * CS;        // attention output, then LN2(r1)
-  __nv_bfloat16* sQ = sB + kRows * CS;
-  __nv_bfloat16* sK = sQ + kRows * kQStride;
-  __nv_bfloat16* sVt = sK + kRows * kQStride;
-  __nv_bfloat16* gF = p.work + (size_t)blockIdx.x * kRows * C4;  // GELU(fc1)
+  __nv_bfloat16* sH = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // LN1(x), then LN2(r1)
+  __nv_bfloat16* scratch = sH + kRows * CS;  // the ring, or two heads' Q, K, V^T
+  __nv_bfloat16* gF = p.work + (size_t)blockIdx.x * slot_elems(C);  // GELU(fc1), 64 x 4C
+  __nv_bfloat16* gO = gF;                    // attention output, 64 x C (before fc1)
+  __nv_bfloat16* gR = gF + (size_t)kRows * C4;  // r1, 64 x C
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   for (int w = blockIdx.x; w < p.windows; w += gridDim.x) {
@@ -308,90 +441,107 @@ __global__ void __launch_bounds__(kThreads) swin_block_kernel(Params p) {
     // LN1; pad rows and spatial-pad tokens are zeros
     for (int r = warp; r < kRows; r += kThreads / 32) {
       if (r < kTok && tv[r]) {
-        ln_row(xw + (size_t)r * C, sA + r * CS, C, p.ln1w, p.ln1b, p.eps, lane);
+        ln_row(xw + (size_t)r * C, sH + r * CS, C, p.ln1w, p.ln1b, p.eps, lane);
       } else {
-        for (int c = lane; c < C; c += 32) sA[r * CS + c] = __float2bfloat16_rn(0.f);
+        for (int c = lane; c < C; c += 32) sH[r * CS + c] = __float2bfloat16_rn(0.f);
       }
     }
 
     const float* mask_w = p.mask ? p.mask + (size_t)(w % p.n_mask) * kTok * kTok : nullptr;
-    for (int hd = 0; hd < p.heads; ++hd) {
-      __syncthreads();  // LN1 written; the previous head's attention is done
-      // this head's q, k, v columns of the qkv Dense: tile column n is part
-      // n / 32 (q, k, v), dimension n % 32
-      dense_tile(sA, CS, p.qkvw, C, 0,
-                 [&](int n) { return (n >> 5) * C + hd * kHd + (n & 31); },
-                 [&](int row, int col, float v0, float v1) {
-                   const int part = col >> 5, d = col & 31;
-                   const int wr = part * C + hd * kHd + d;
-                   const float y0 = dense_out(v0, p.qkvb[wr]);
-                   const float y1 = dense_out(v1, p.qkvb[wr + 1]);
-                   if (part == 2) {
-                     sVt[d * kVStride + row] = __float2bfloat16_rn(y0);
-                     sVt[(d + 1) * kVStride + row] = __float2bfloat16_rn(y1);
-                   } else {
-                     __nv_bfloat16* q = (part == 0 ? sQ : sK) + row * kQStride + d;
-                     *reinterpret_cast<uint32_t*>(q) = pack_bf16(y0, y1);
-                   }
-                 });
+    for (int hd0 = 0; hd0 < p.heads; hd0 += 2) {
+      const int nh = p.heads - hd0 < 2 ? 1 : 2;  // heads of this pair
+      __syncthreads();  // LN1 written; the previous pair's attention is done
+      // both heads' q, k, v columns of the qkv Dense: tile column n is head
+      // hd0 + n / 96, part (n % 96) / 32 (q, k, v), dimension n % 32; a
+      // missing second head repeats the first, and its columns are dropped
+      dense_tile<kWide, false, false>(
+          sH, CS, p.qkvw, p.qkvb, C, 0,
+          [&](int n) {
+            const int hd = hd0 + (n >= kTile && nh == 2), c = n % kTile;
+            return (c >> 5) * C + hd * kHd + (c & 31);
+          },
+          nullptr, 0,
+          [&](int row, int col, float y0, float y1) {
+            const int slot = col / kTile;
+            if (slot >= nh) return;
+            const int c = col % kTile, part = c >> 5, d = c & 31;
+            __nv_bfloat16* sQ = scratch + slot * kHeadElems;
+            __nv_bfloat16* sK = sQ + kRows * kQStride;
+            __nv_bfloat16* sVt = sK + kRows * kQStride;
+            if (part == 2) {
+              sVt[d * kVStride + row] = __float2bfloat16_rn(y0);
+              sVt[(d + 1) * kVStride + row] = __float2bfloat16_rn(y1);
+            } else {
+              *reinterpret_cast<uint32_t*>((part == 0 ? sQ : sK) + row * kQStride + d) =
+                  pack_bf16(y0, y1);
+            }
+          },
+          scratch);
       __syncthreads();
-      if (warp < kRows / 16)
-        head_attention(sQ, sK, sVt, p.bias + (size_t)hd * kTok * kTok, mask_w,
-                       p.scale, sB, CS, hd, warp * 16, lane);
+      const int slot = warp >> 2;  // warps 0-3 the pair's first head, 4-7 its second
+      if (slot < nh) {
+        const __nv_bfloat16* sQ = scratch + slot * kHeadElems;
+        head_attention(sQ, sQ + kRows * kQStride, sQ + 2 * kRows * kQStride,
+                       p.bias + (size_t)(hd0 + slot) * kTok * kTok, mask_w, p.scale, gO, C,
+                       hd0 + slot, (warp & 3) * 16, lane);
+      }
     }
-    __syncthreads();
+    __syncthreads();  // the attention output is in the slot; the scratch is free
 
-    // proj, + residual: r1 = x + (bf16(O Wproj^T) + bproj) into sA
-    for (int n0 = 0; n0 < C; n0 += kTile)
-      dense_tile(sB, CS, p.projw, C, n0, Identity(),
-                 [&](int row, int col, float v0, float v1) {
-                   float x0 = 0.f, x1 = 0.f;
-                   if (row < kTok) {
-                     x0 = bf(xw[(size_t)row * C + col]);
-                     x1 = bf(xw[(size_t)row * C + col + 1]);
-                   }
-                   *reinterpret_cast<uint32_t*>(sA + row * CS + col) =
-                       pack_bf16(__fadd_rn(x0, dense_out(v0, p.projb[col])),
-                                 __fadd_rn(x1, dense_out(v1, p.projb[col + 1])));
-                 });
+    // proj, + residual: r1 = x + (bf16(O Wproj^T) + bproj) into the slot
+    residual_dense(gO, C, p.projw, p.projb, C, C, xw,
+                   [&](int row, int col, float y0, float y1) {
+                     *reinterpret_cast<uint32_t*>(gR + (size_t)row * C + col) = pack_bf16(y0, y1);
+                   },
+                   scratch);
     __syncthreads();
     for (int r = warp; r < kRows; r += kThreads / 32)
-      ln_row(sA + r * CS, sB + r * CS, C, p.ln2w, p.ln2b, p.eps, lane);
+      ln_row(gR + (size_t)r * C, sH + r * CS, C, p.ln2w, p.ln2b, p.eps, lane);
     __syncthreads();
 
-    // fc1 + GELU into this block's workspace slot
-    for (int n0 = 0; n0 < C4; n0 += kTile)
-      dense_tile(sB, CS, p.fc1w, C, n0, Identity(),
-                 [&](int row, int col, float v0, float v1) {
-                   *reinterpret_cast<uint32_t*>(gF + (size_t)row * C4 + col) =
-                       pack_bf16(gelu_poly(dense_out(v0, p.fc1b[col])),
-                                 gelu_poly(dense_out(v1, p.fc1b[col + 1])));
-                 });
+    // fc1 + GELU into the slot (over the attention output, which proj has read)
+    for (int n0 = 0; n0 < C4; n0 += kWide)
+      dense_tile<kWide, false, false>(sH, CS, p.fc1w, p.fc1b, C, n0, Identity(), nullptr, 0,
+                                      [&](int row, int col, float y0, float y1) {
+                                        *reinterpret_cast<uint32_t*>(gF + (size_t)row * C4 + col) =
+                                            pack_bf16(gelu_poly(y0), gelu_poly(y1));
+                                      },
+                                      scratch);
     __syncthreads();
 
     // fc2, + residual: out = r1 + (bf16(f1 Wfc2^T) + bfc2), real rows only
     __nv_bfloat16* ow = p.out + (size_t)w * kTok * C;
-    for (int n0 = 0; n0 < C; n0 += kTile)
-      dense_tile(gF, C4, p.fc2w, C4, n0, Identity(),
-                 [&](int row, int col, float v0, float v1) {
-                   if (row >= kTok) return;
-                   const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(
-                       sA + row * CS + col);
-                   *reinterpret_cast<uint32_t*>(ow + (size_t)row * C + col) =
-                       pack_bf16(__fadd_rn(bf(r.x), dense_out(v0, p.fc2b[col])),
-                                 __fadd_rn(bf(r.y), dense_out(v1, p.fc2b[col + 1])));
-                 });
-    __syncthreads();  // sA, sB and the slot are free for the next window
+    residual_dense(gF, C4, p.fc2w, p.fc2b, C4, C, gR,
+                   [&](int row, int col, float y0, float y1) {
+                     if (row < kTok)
+                       *reinterpret_cast<uint32_t*>(ow + (size_t)row * C + col) = pack_bf16(y0, y1);
+                   },
+                   scratch);
+    __syncthreads();  // the panel, the scratch and the slot are free for the next window
   }
 }
 
 int prepare(int C) {
-  return (int)cudaFuncSetAttribute(swin_block_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem_bytes(C));
+  cudaError_t err = cudaFuncSetAttribute(
+      swin_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes(C));
+  if (err == cudaSuccess)  // two 112 KB blocks want the largest shared-memory carveout
+    err = cudaFuncSetAttribute(swin_block_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  return (int)err;
 }
 
 }  // namespace
+
+// The kernel's layout at width `channels`: shared memory bytes a block and
+// bf16 elements of a workspace slot (nn/swin_block.py mirrors both). Returns
+// a cudaError_t (0 on success).
+extern "C" int macaque_swin_block_layout(int channels, int* smem, int* slot) {
+  if (channels <= 0 || channels % kTile || channels > 768) return (int)cudaErrorInvalidValue;
+  *smem = (int)smem_bytes(channels);
+  *slot = (int)slot_elems(channels);
+  return 0;
+}
 
 // The number of blocks the kernel keeps resident on the current device at
 // width `channels`: the largest grid it is launched with, one workspace slot
@@ -415,7 +565,7 @@ extern "C" int macaque_swin_block_slots(int channels, int* slots) {
 // x, out (windows, 49, channels) bf16; tok_valid (windows, 49) uint8; bias
 // (heads, 49, 49) f32; mask (n_mask, 49, 49) f32 or null, window w masked by
 // mask[w % n_mask]; LayerNorm weights and biases (channels) f32; Dense
-// weights (out, in) and biases bf16; workspace (slots, 64, 4 * channels)
+// weights (out, in) and biases bf16; workspace (slots, 64, 5 * channels)
 // bf16 with slots <= macaque_swin_block_slots; channels = 32 * heads, a
 // multiple of 96 up to 768. Returns a cudaError_t (0 on success).
 extern "C" int macaque_swin_block(

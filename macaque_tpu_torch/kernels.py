@@ -2,8 +2,9 @@
 
 All ``csrc/*.cu`` sources go through one ``nvcc`` call into one shared
 library with a plain C interface, loaded with ``ctypes``; the headers
-beside them (``csrc/*.cuh``, such as ``attention_core.cuh``, the attention
-template of K1 and K4) are included by the sources. The build runs at
+beside them (``csrc/*.cuh``: ``ptx.cuh``, the PTX helpers of every
+tensor-core kernel, and ``attention_core.cuh``, the attention template of
+K1 and K4) are included by the sources. The build runs at
 first use, into ``_build/`` beside this file (override with
 ``MACAQUE_TPU_TORCH_BUILD``), and is reused while the sources and headers
 are unchanged: the library's name carries a hash of their contents.
@@ -106,7 +107,7 @@ def library() -> ctypes.CDLL:
             lib.macaque_roi_align_windowed.restype = i
             lib.macaque_quantize_rows.argtypes = [p, p, p, i, i, p]
             lib.macaque_quantize_rows.restype = i
-            lib.macaque_quant_int8_matmul.argtypes = [p, p, p, p, p, i, i, i, p]
+            lib.macaque_quant_int8_matmul.argtypes = [p] * 8 + [i] * 3 + [p]
             lib.macaque_quant_int8_matmul.restype = i
             lib.macaque_window_attention.argtypes = [
                 p, p, p, p, i, i, i, i, i, f, i, i, p]
@@ -114,11 +115,15 @@ def library() -> ctypes.CDLL:
             lib.macaque_attention.argtypes = [p, p, p, p, i, i, i, i, f, p]
             lib.macaque_attention.restype = i
             for fn in (lib.macaque_attention_blocks_per_sm,
-                       lib.macaque_packed_attention_blocks_per_sm):
+                       lib.macaque_packed_attention_blocks_per_sm,
+                       lib.macaque_quant_int8_matmul_blocks_per_sm):
                 fn.argtypes = [ctypes.POINTER(i)]
                 fn.restype = i
             lib.macaque_swin_block_slots.argtypes = [i, ctypes.POINTER(i)]
             lib.macaque_swin_block_slots.restype = i
+            lib.macaque_swin_block_layout.argtypes = [
+                i, ctypes.POINTER(i), ctypes.POINTER(i)]
+            lib.macaque_swin_block_layout.restype = i
             lib.macaque_swin_block.argtypes = [p] * 18 + [i] * 5 + [f, p]
             lib.macaque_swin_block.restype = i
             _lib = lib
@@ -126,8 +131,9 @@ def library() -> ctypes.CDLL:
 
 
 def resident_blocks(name: str) -> int:
-    """Blocks of the attention kernel ``name`` ("attention" or
-    "packed_attention") that one SM of the current device keeps resident."""
+    """Blocks of the kernel ``name`` ("attention", "packed_attention" or
+    "quant_int8_matmul", K5b's GEMM) that one SM of the current device keeps
+    resident."""
     n = ctypes.c_int(0)
     query = getattr(library(), f"macaque_{name}_blocks_per_sm")
     check(query(ctypes.byref(n)), f"{name} occupancy")

@@ -9,9 +9,10 @@ products against per-output-channel weight codes, and the dequantization
 Three wrappers, each with its plain version:
   * ``quantize_rows`` (x (M, K) -> int8 codes (M, K), f32 scales (M, 1)):
     the kernel in ``csrc/quantize_rows.cu`` (K5a);
-  * ``quant_int8_matmul``: quantization, dot and epilogue in one kernel,
-    ``csrc/int8_matmul.cu`` (K5b); it replaces both Pallas kernels
-    (weights-resident and tiled), which compute one function;
+  * ``quant_int8_matmul``: quantization, dot and epilogue in one call,
+    ``csrc/int8_matmul.cu`` (K5b: the row quantizer, then a cp.async-fed
+    int8 GEMM); it replaces both Pallas kernels (weights-resident and
+    tiled), which compute one function;
   * ``quant_int8_matmul_split``: K5a, then the int8 dot outside any kernel
     (``torch._int_mm``, as the JAX package leaves that dot to XLA) and the
     epilogue in plain PyTorch.
@@ -78,13 +79,16 @@ def dequantize(acc, s, wscale, bias, dtype) -> torch.Tensor:
     return fma_f32(out, wscale, bias).to(dtype)
 
 
-def quant_int8_matmul_reference(x, weight_q, wscale, bias=None):
+def quant_int8_matmul_reference(x, weight_q, wscale, bias=None, out_bias=None):
     """Plain version of ``quant_int8_matmul``: x (..., K) float; weight_q
-    (N, K) int8; wscale (N,) f32; bias (N,) f32 or None -> (..., N) in
-    x.dtype."""
+    (N, K) int8; wscale (N,) f32; bias (N,) f32 or None, joined in float32
+    before the cast; out_bias (N,) f32 or None, added after the cast in
+    x.dtype -> (..., N) in x.dtype."""
     lead, K = x.shape[:-1], x.shape[-1]
     xq, s = quantize_rows_reference(x.reshape(-1, K))
     out = dequantize(int_dot_reference(xq, weight_q), s, wscale, bias, x.dtype)
+    if out_bias is not None:
+        out = out + out_bias.to(out.dtype)
     return out.reshape(*lead, weight_q.shape[0])
 
 
@@ -119,6 +123,7 @@ def quantize_rows(x: torch.Tensor):
 
 
 def _check_weights(name, weight_q, wscale, bias, K, device):
+    """``bias`` stands for either bias (both are (N,) float32)."""
     N = weight_q.shape[0]
     if weight_q.dtype != torch.int8 or tuple(weight_q.shape) != (N, K):
         raise ValueError(f"{name}: weight_q must be int8 (N, {K}), got "
@@ -135,25 +140,37 @@ def _check_weights(name, weight_q, wscale, bias, K, device):
         raise ValueError(f"{name}: weight_q must be 16-byte aligned")
 
 
-def quant_int8_matmul(x, weight_q, wscale, bias=None):
-    """x (..., K) -> (..., N) in x.dtype: per-row dynamic quantization fused
-    into the int8 matmul and the float32 epilogue (the bias joins in float32,
-    before the cast). The K5b kernel on CUDA (bfloat16, K % 32 == 0,
-    N % 8 == 0), the plain version on the CPU."""
+def quant_int8_matmul(x, weight_q, wscale, bias=None, out_bias=None):
+    """x (..., K) -> (..., N) in x.dtype: per-row dynamic quantization, the
+    int8 matmul and the float32 epilogue; ``bias`` joins in float32 before
+    the cast (the TPU kernel's function), ``out_bias`` after it, in x.dtype
+    (the int8 layers' chain, ``nn/quant.py``); at most one of them. The K5b
+    kernel on CUDA (bfloat16, K % 32 == 0, N % 8 == 0), the plain version
+    on the CPU. On CUDA one C call runs two passes: the
+    row quantizer (K5a's device code) into a workspace of int8 codes and
+    f32 scales that this wrapper allocates, then the int8 GEMM over the
+    codes; only ``LAUNCHES["quant_int8_matmul"]`` goes up, by one."""
+    if bias is not None and out_bias is not None:
+        raise ValueError("quant_int8_matmul: give bias or out_bias, not both")
     if x.device.type == "cpu":
-        return quant_int8_matmul_reference(x, weight_q, wscale, bias)
+        return quant_int8_matmul_reference(x, weight_q, wscale, bias, out_bias)
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K)
     _check_cuda("quant_int8_matmul", x2, K)
-    _check_weights("quant_int8_matmul", weight_q, wscale, bias, K, x.device)
+    _check_weights("quant_int8_matmul", weight_q, wscale,
+                   bias if out_bias is None else out_bias, K, x.device)
     M, N = x2.shape[0], weight_q.shape[0]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M:
+        # the codes and scales of the quantize pass, read by the GEMM
+        xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
+        xs = torch.empty((M,), dtype=torch.float32, device=x.device)
+        ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
         err = kernels.library().macaque_quant_int8_matmul(
-            ctypes.c_void_p(x2.data_ptr()), ctypes.c_void_p(weight_q.data_ptr()),
-            ctypes.c_void_p(wscale.data_ptr()),
-            ctypes.c_void_p(bias.data_ptr() if bias is not None else 0),
-            ctypes.c_void_p(out.data_ptr()), M, N, K,
+            ptr(x2), ptr(weight_q), ptr(wscale),
+            *(ctypes.c_void_p(b.data_ptr() if b is not None else 0)
+              for b in (bias, out_bias)),
+            ptr(xq), ptr(xs), ptr(out), M, N, K,
             kernels.current_stream(x.device))
         kernels.check(err, "quant_int8_matmul")
         kernels.LAUNCHES["quant_int8_matmul"] += 1

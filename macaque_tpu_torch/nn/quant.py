@@ -8,19 +8,19 @@ activations symmetric per row, computed on the fly
 ``(acc * s) * wscale``. Everything else (LayerNorm, attention, patch embed,
 heads) stays in the float path.
 
-``Int8Linear`` picks its route from where its input lies and from K:
+``Int8Linear`` picks its route from where its input lies:
   * on the CPU it runs ``int8_matmul_reference``, the chain of the JAX
     package's default tier (``Int8Dense`` with ``int8_impl="auto"``, which
     ``vit.py:76`` maps to "xla"): dequantize, cast to the input dtype, then
     add the bias in that dtype;
-  * on CUDA it runs the split route where K <= 2048 (K5a, then
-    ``torch._int_mm`` and the epilogue: ``nn/int8.py::quant_int8_matmul_split``,
-    the JAX package's "pallas" route at these K) and the fused kernel K5b
-    above (``nn/int8.py::quant_int8_matmul``). On the H100 the split route
-    is the faster of the two at K = 1280 (``chip_smoke.py`` times both).
-Both card routes run without a bias, ``(acc * s) * wscale`` cast to the
-input dtype, and the layer then adds the bias in that dtype: the chain of
-the JAX default tier, so the card and the CPU give the same bits.
+  * on CUDA it runs K5b at every K (``nn/int8.py::quant_int8_matmul``: the
+    row quantizer, then the int8 GEMM). On the H100 K5b is faster than the
+    split route (K5a, ``torch._int_mm`` and the epilogue,
+    ``nn/int8.py::quant_int8_matmul_split``) at all four ViTPose-huge
+    widths, K = 1280 included (``chip_smoke.py`` times both).
+On the card K5b computes the same chain, ``(acc * s) * wscale`` cast to
+the input dtype and then the bias added in that dtype (its ``out_bias``
+epilogue), so the card and the CPU give the same bits.
 """
 
 from __future__ import annotations
@@ -31,21 +31,13 @@ import torch
 from torch import nn
 
 from macaque_tpu_torch.nn.int8 import (
-    dequantize, int_dot_reference, quant_int8_matmul, quant_int8_matmul_split,
-    quantize_rows_reference)
-
-SPLIT_MAX_K = 2048        # the split route up to this K on the card
+    quant_int8_matmul, quant_int8_matmul_reference)
 
 
 def int8_matmul_reference(x, weight_q, wscale, bias=None) -> torch.Tensor:
     """The JAX package's ``int8_matmul`` chain plus ``Int8Dense``'s bias:
     x (..., K) float -> (..., N) in x.dtype, bias added after the cast."""
-    lead, K = x.shape[:-1], x.shape[-1]
-    xq, s = quantize_rows_reference(x.reshape(-1, K))
-    out = dequantize(int_dot_reference(xq, weight_q), s, wscale, None, x.dtype)
-    if bias is not None:
-        out = out + bias.to(out.dtype)
-    return out.reshape(*lead, weight_q.shape[0])
+    return quant_int8_matmul_reference(x, weight_q, wscale, None, bias)
 
 
 def quantize_dense(weight: torch.Tensor):
@@ -60,14 +52,12 @@ def quantize_dense(weight: torch.Tensor):
 class Int8Linear(nn.Module):
     """The counterpart of ``Int8Dense``: buffers ``weight_q`` int8 (N, K),
     ``wscale`` f32 (N,) and ``bias`` f32 (N,) (zeros until loaded); output in
-    the input's dtype. ``route`` is what it runs on the card: "split"
-    where K <= ``SPLIT_MAX_K``, else "fused"."""
+    the input's dtype. On the card it runs K5b (``quant_int8_matmul``)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  device=None):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
-        self.route = "split" if in_features <= SPLIT_MAX_K else "fused"
         self.register_buffer("weight_q", torch.zeros(
             (out_features, in_features), dtype=torch.int8, device=device))
         self.register_buffer("wscale", torch.ones(out_features, device=device))
@@ -85,19 +75,13 @@ class Int8Linear(nn.Module):
         return m
 
     def forward(self, x):
-        if x.device.type == "cpu":
-            return int8_matmul_reference(x, self.weight_q, self.wscale, self.bias)
-        route = (quant_int8_matmul_split if self.route == "split"
-                 else quant_int8_matmul)
-        out = route(x, self.weight_q, self.wscale, None)
-        if self.bias is not None:
-            out = out + self.bias.to(out.dtype)
-        return out
+        # K5b on the card, int8_matmul_reference's chain on the CPU
+        return quant_int8_matmul(x, self.weight_q, self.wscale, None,
+                                 self.bias)
 
     def extra_repr(self):
         return (f"in_features={self.in_features}, out_features="
-                f"{self.out_features}, bias={self.bias is not None}, "
-                f"route={self.route!r}")
+                f"{self.out_features}, bias={self.bias is not None}")
 
 
 def _swap(parent: nn.Module, name: str, key: str, source) -> None:

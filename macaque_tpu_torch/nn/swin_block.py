@@ -156,10 +156,27 @@ def _check(x_win, tok_valid, params, bias_hnm, mask, heads):
                              f"{tuple(t.shape)}")
 
 
+# csrc/swin_block.cu's scratch region: a 3-stage ring of (192 x 40) bf16
+# weight slabs beside (64 x 40) activation slabs, or two heads' Q, K, V^T,
+# whichever is larger
+_SCRATCH_BYTES = 3 * (192 + 64) * 40 * 2
+
+
+def block_layout(C: int) -> dict:
+    """K6's layout at width C, as ``csrc/swin_block.cu`` computes it (and
+    ``macaque_swin_block_layout`` reports): the rows a block holds (one
+    window of 49 tokens padded to 64), its shared-memory bytes (one
+    64 x (C + 8) bf16 panel and the scratch region) and the (rows, columns)
+    bf16 shape of the workspace slot each resident block owns (the GELU
+    activation, 4C columns, and r1, C)."""
+    return {"rows": 64, "smem_bytes": 64 * (C + 8) * 2 + _SCRATCH_BYTES,
+            "slot": (64, 5 * C)}
+
+
 def _workspace_slots(C: int, device) -> int:
     """Blocks the kernel keeps resident on ``device`` at width C (its grid
-    when there are more windows): each owns one (64, 4C) bf16 slot of the
-    workspace."""
+    when there are more windows): each owns one ``block_layout(C)["slot"]``
+    of the workspace."""
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
         kernels.check(kernels.library().macaque_swin_block_slots(
@@ -181,8 +198,8 @@ def fused_swin_block(x_win, tok_valid, params, bias_hnm, mask, heads: int,
     out = torch.empty_like(x_win)
     if nW:
         slots = min(nW, _workspace_slots(C, x_win.device))
-        work = torch.empty((slots, 64, 4 * C), dtype=x_win.dtype,
-                           device=x_win.device)
+        work = torch.empty((slots, *block_layout(C)["slot"]),
+                           dtype=x_win.dtype, device=x_win.device)
         ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
         tv = tok_valid.to(torch.uint8).contiguous()
         err = kernels.library().macaque_swin_block(

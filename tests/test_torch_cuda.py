@@ -124,6 +124,46 @@ def test_quant_int8_matmul_kernel_is_exact(card, M, K, N, bias):
     assert torch.equal(quant_int8_matmul_split(x, wq, ws, b), got)
 
 
+# K5b's ragged edges: one row, rows that leave the 128-row tile part full,
+# N = 136 (a 128-column tile and 8 columns of the next), K = 32 and 96
+# (half of and one and a half 64-byte slabs: the ring zero-fills the rest)
+@pytest.mark.parametrize("M,K,N", [(1, 1280, 256), (17, 1280, 256),
+                                   (129, 1280, 256), (200, 1280, 136),
+                                   (150, 32, 264), (150, 96, 264)])
+def test_quant_int8_matmul_ragged_shapes_are_exact(card, M, K, N):
+    x, wq, ws, b = _int8_inputs(card, M, K, N, 5)
+    n = kernels.LAUNCHES["quant_int8_matmul"]
+    # no bias, the bias before the cast (the TPU kernel's), after it (the
+    # int8 layers')
+    for bias, out_bias in ((None, None), (b, None), (None, b)):
+        assert torch.equal(quant_int8_matmul(x, wq, ws, bias, out_bias),
+                           quant_int8_matmul_reference(x, wq, ws, bias, out_bias))
+    assert kernels.LAUNCHES["quant_int8_matmul"] == n + 3
+
+
+def test_quant_int8_matmul_rounds_half_way_codes_to_even(card):
+    """Rows whose maximum is 127 have the scale 1.0 exactly, so the values
+    k + 0.5 land half way between two codes: rint rounds them to the even
+    one, as the plain version's torch.round does."""
+    rng = np.random.default_rng(6)
+    M, K, N = 256, 1280, 256
+    x = rng.integers(-127, 127, (M, K)) + 0.5
+    x[:, 7] = 127.0
+    x = torch.from_numpy(x).to(card, torch.bfloat16)
+    _, wq, ws, b = _int8_inputs(card, M, K, N, 6)
+    q, s = quantize_rows_reference(x)
+    assert torch.equal(s, torch.ones_like(s))
+    assert (q[:, :7].float() != x[:, :7].float()).all()       # every one a tie
+    assert torch.equal(quant_int8_matmul(x, wq, ws, b),
+                       quant_int8_matmul_reference(x, wq, ws, b))
+
+
+# 80 KB of shared memory and at most 128 registers a thread: 2 blocks of 8
+# warps on an SM (csrc/int8_matmul.cu)
+def test_quant_int8_matmul_keeps_two_blocks_per_sm(card):
+    assert kernels.resident_blocks("quant_int8_matmul") >= 2
+
+
 def test_int8_kernels_refuse_what_they_were_not_built_for(card):
     x, wq, ws, b = _int8_inputs(card, 64, 1280, 256)
     with pytest.raises(TypeError):
@@ -140,12 +180,12 @@ def test_int8_kernels_refuse_what_they_were_not_built_for(card):
         quant_int8_matmul(x, wq.cpu(), ws, b)                   # weights on the CPU
 
 
-@pytest.mark.parametrize("K, kernel", [(1280, "quantize_rows"),
+@pytest.mark.parametrize("K, kernel", [(1280, "quant_int8_matmul"),
                                        (5120, "quant_int8_matmul")])
 def test_int8_linear_takes_its_route_on_the_card(card, K, kernel):
-    """Int8Linear picks its kernel from K: the split route (K5a, then
-    torch._int_mm) up to K = 2048, the fused kernel K5b above; either way
-    it computes the JAX default tier's chain, bias added after the cast."""
+    """Int8Linear runs K5b at every K (one count: its quantize pass is part
+    of the call) and computes the JAX default tier's chain, bias added
+    after the cast."""
     x, wq, ws, b = _int8_inputs(card, 384, K, 256, 3)
     m = Int8Linear(K, 256, device=card)
     m.load_state_dict({"weight_q": wq, "wscale": ws, "bias": b})
@@ -159,14 +199,14 @@ def test_int8_linear_takes_its_route_on_the_card(card, K, kernel):
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("M,K", [(300, 1280), (77, 5120), (333, 96)])
 def test_int8_linear_equals_the_jax_default_chain(card, M, K, bias):
-    """Both card routes, with and without a bias, bit for bit against
-    int8_matmul_reference, the chain the layer runs on the CPU."""
+    """The card route (K5b, the bias in its out_bias epilogue), with and
+    without a bias, bit for bit against int8_matmul_reference, the chain the
+    layer runs on the CPU."""
     x, wq, ws, b = _int8_inputs(card, M, K, 264, 4)
     m = Int8Linear(K, 264, bias=bias, device=card)
     m.weight_q, m.wscale = wq, ws
     if bias:
         m.bias = b
-    assert m.route == ("split" if K <= 2048 else "fused")
     assert torch.equal(m(x), int8_matmul_reference(x, wq, ws, m.bias))
 
 
@@ -309,6 +349,41 @@ def test_swin_block_kernel(card, C, images, grid, masked):
     assert torch.isfinite(got.float()).all()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 2.0 ** -5 * (want.float() - args[0].float()).abs().max().item()
+
+
+# more windows than the card keeps blocks at C = 384 and 768: every block
+# takes a second window into the slot the first one used
+@pytest.mark.parametrize("C, images, grid", [(384, 6, (6, 8)), (768, 12, (3, 4))])
+def test_swin_block_kernel_reuses_its_slots(card, C, images, grid):
+    from macaque_tpu_torch.nn.swin_block import (
+        _workspace_slots, fused_swin_block, fused_swin_block_reference)
+
+    args = _swin_block_case(card, 8, C, images, grid, True)
+    assert args[0].shape[0] > _workspace_slots(C, card)
+    got = fused_swin_block(*args)
+    want = fused_swin_block_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -5 * (want.float() - args[0].float()).abs().max().item()
+
+
+# one 64 x (C + 8) panel and a 61,440-byte scratch region a block, at most
+# 128 registers a thread: two blocks an SM up to C = 384, one at 768
+# (csrc/swin_block.cu); the layout as nn/swin_block.py mirrors it
+@pytest.mark.parametrize("C, per_sm", [(96, 2), (192, 2), (384, 2), (768, 1)])
+def test_swin_block_keeps_its_blocks_per_sm(card, C, per_sm):
+    import ctypes
+
+    from macaque_tpu_torch.nn.swin_block import _workspace_slots, block_layout
+
+    smem, slot = ctypes.c_int(0), ctypes.c_int(0)
+    kernels.check(kernels.library().macaque_swin_block_layout(
+        C, ctypes.byref(smem), ctypes.byref(slot)), "layout")
+    lay = block_layout(C)
+    assert (smem.value, slot.value) == (lay["smem_bytes"], 64 * 5 * C)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert _workspace_slots(C, card) >= per_sm * sms
 
 
 def test_fused_swin_s_trunk(card):

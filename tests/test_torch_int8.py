@@ -7,6 +7,8 @@ kernels' epilogue, as XLA compiles it, is one fused multiply-add, which the
 port rounds the same way. The CUDA kernels are held against these plain
 versions on a card in test_torch_cuda.py."""
 
+from unittest import mock
+
 import numpy as np
 import pytest
 
@@ -22,6 +24,7 @@ from macaque_tpu.nn.pallas_int8 import (
 from macaque_tpu.nn.swin import SwinConfig as JSwinConfig
 from macaque_tpu_torch import kernels
 from macaque_tpu_torch import nn as tnn
+from macaque_tpu_torch.nn import quant
 from macaque_tpu_torch.nn.convert import (
     swin_backbone_from_jax, swin_maskrcnn_from_jax, vitpose_from_jax)
 from macaque_tpu_torch.nn.int8 import (
@@ -331,15 +334,41 @@ def test_int8_swin_matches_jax(monkeypatch, swin_int8):
             g.numpy(), w, atol=_tolerance(flips, np.abs(w).max()), rtol=0)
 
 
-@pytest.mark.parametrize("K, route", [(384, "split"), (2048, "split"),
-                                      (2080, "fused")])
-def test_int8_linear_routes_on_cpu_and_checks_impl(K, route):
+def _card_calls(m, K):
+    """The calls ``m`` makes off the CPU, on a meta tensor (shapes only):
+    ``quant.quant_int8_matmul`` is replaced by a recorder."""
+    calls = []
+
+    def record(x, weight_q, wscale, bias, out_bias):
+        calls.append((tuple(x.shape), tuple(weight_q.shape), bias,
+                      None if out_bias is None else tuple(out_bias.shape)))
+        return torch.empty((*x.shape[:-1], weight_q.shape[0]), dtype=x.dtype,
+                           device=x.device)
+
+    meta = Int8Linear(K, m.out_features, device="meta")
+    with mock.patch.object(quant, "quant_int8_matmul", record):
+        meta(torch.empty((3, K), dtype=torch.bfloat16, device="meta"))
+    return calls
+
+
+@pytest.mark.parametrize("K", [384, 2048, 2080])
+def test_int8_linear_routes_on_cpu_and_checks_impl(K):
     """On the CPU every layer runs the JAX default tier's chain (bias after
-    the cast); its card route follows from K alone: the split route up to
-    K = 2048, the fused kernel above."""
+    the cast); off the CPU it runs K5b at any K, the bias as K5b's out_bias
+    (added after the cast, as the chain adds it)."""
     (_, _, _, _), (xt, wq, wst, bt) = _inputs(40, K, 128, "bfloat16", 9)
     m = Int8Linear(K, 128)
     m.load_state_dict({"weight_q": wq, "wscale": wst, "bias": bt})
-    assert m.route == route
     torch.testing.assert_close(m(xt), int8_matmul_reference(xt, wq, wst, bt),
                                rtol=0, atol=0)
+    assert _card_calls(m, K) == [((3, K), (128, K), None, (128,))]
+
+
+# ViTPose-huge's four block Dense layers (K, N): qkv, proj, fc1, fc2
+@pytest.mark.parametrize("K, N", [(1280, 3840), (1280, 1280), (1280, 5120),
+                                  (5120, 1280)])
+def test_int8_linear_takes_k5b_at_every_vit_huge_width(K, N):
+    """The card route at each width the int8 tiers run: K5b
+    (``quant_int8_matmul``) once, the split route never (the chip runs
+    time K5b faster than it at K = 1280 as well)."""
+    assert _card_calls(Int8Linear(K, N), K) == [((3, K), (N, K), None, (N,))]
