@@ -77,16 +77,6 @@ struct AttnShape {
   static constexpr int kSmemBytes = 2 * N * kStride * 2;
 };
 
-// (x0, x1) -> hi = bf16_rn(x), lo = bf16_rn(x - hi), packed as two A-fragment
-// registers
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = pack_bf16(__fsub_rn(x0, hf.x), __fsub_rn(x1, hf.y));
-}
-
 // The body of one block: (sequence, head) = divmod(blockIdx.x, heads).
 template <int N, int D, bool kSplitP>
 __device__ __forceinline__ void attention_block(const AttnArgs& a) {

@@ -1,6 +1,7 @@
 // The PTX pieces the port's tensor-core kernels share: cp.async staging,
 // ldmatrix fragment loads and the bf16 mma.sync. Included by
-// attention_core.cuh (K1, K4), int8_matmul.cu (K5b) and swin_block.cu (K6).
+// attention_core.cuh (K1, K4), int8_matmul.cu (K5b), swin_block.cu (K6),
+// window_attention.cu (K3) and roi_align_windowed.cu (K2).
 //
 // One ldmatrix scheme serves bf16 and s8 operands alike: ldmatrix reads
 // 8 x 8 matrices of 16-bit words, 16 bytes a row, and gives lane l the
@@ -33,6 +34,12 @@ __device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
                                                  bool full) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
                "l"(gmem), "r"(full ? 16 : 0));
+}
+
+// 4 bytes global -> shared (cached in L1 too: .cg takes only 16)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -70,6 +77,16 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x0, x1) -> hi = bf16_rn(x), lo = bf16_rn(x - hi), packed as two A-fragment
+// registers: hi + lo carries x to 16 significant bits (x - hi is exact in f32)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = pack_bf16(__fsub_rn(x0, hf.x), __fsub_rn(x1, hf.y));
 }
 
 // D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col)

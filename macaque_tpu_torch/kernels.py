@@ -116,9 +116,13 @@ def library() -> ctypes.CDLL:
             lib.macaque_attention.restype = i
             for fn in (lib.macaque_attention_blocks_per_sm,
                        lib.macaque_packed_attention_blocks_per_sm,
-                       lib.macaque_quant_int8_matmul_blocks_per_sm):
+                       lib.macaque_quant_int8_matmul_blocks_per_sm,
+                       lib.macaque_roi_align_windowed_blocks_per_sm):
                 fn.argtypes = [ctypes.POINTER(i)]
                 fn.restype = i
+            lib.macaque_window_attention_blocks_per_sm.argtypes = [
+                i, i, ctypes.POINTER(i)]
+            lib.macaque_window_attention_blocks_per_sm.restype = i
             lib.macaque_swin_block_slots.argtypes = [i, ctypes.POINTER(i)]
             lib.macaque_swin_block_slots.restype = i
             lib.macaque_swin_block_layout.argtypes = [
@@ -130,13 +134,14 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def resident_blocks(name: str) -> int:
-    """Blocks of the kernel ``name`` ("attention", "packed_attention" or
-    "quant_int8_matmul", K5b's GEMM) that one SM of the current device keeps
-    resident."""
+def resident_blocks(name: str, *variant: int) -> int:
+    """Blocks of the kernel ``name`` ("attention", "packed_attention",
+    "quant_int8_matmul" (K5b's GEMM), "roi_align_windowed", or
+    "window_attention" with the variant ``dtype, blocked``: dtype 0 = f32,
+    1 = bf16) that one SM of the current device keeps resident."""
     n = ctypes.c_int(0)
     query = getattr(library(), f"macaque_{name}_blocks_per_sm")
-    check(query(ctypes.byref(n)), f"{name} occupancy")
+    check(query(*variant, ctypes.byref(n)), f"{name} occupancy")
     return n.value
 
 

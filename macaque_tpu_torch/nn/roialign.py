@@ -89,7 +89,9 @@ def roi_align_windows_reference(canvas, plane, ys, xs, ky, kx,
 def roi_align_windows(canvas, plane, ys, xs, ky, kx) -> torch.Tensor:
     """The RoI window step: the kernel on CUDA, the plain version on the
     CPU. Arguments as ``roi_align_windows_reference``; on CUDA the canvas
-    is bf16, plane/ys/xs int32 and ky/kx float32, all contiguous."""
+    is bf16 with a multiple of 32 channels, plane/ys/xs int32 and ky/kx
+    float32 (ky's values bf16, as ``window_inputs`` rounds them; others
+    are refused), all contiguous."""
     if canvas.device.type == "cpu":
         return roi_align_windows_reference(canvas, plane, ys, xs, ky, kx)
     if canvas.device.type != "cuda":
@@ -99,7 +101,8 @@ def roi_align_windows(canvas, plane, ys, xs, ky, kx) -> torch.Tensor:
     if canvas.dtype != torch.bfloat16:
         raise TypeError(f"roi_align_windows: kernel takes a bfloat16 canvas, "
                         f"got {canvas.dtype}")
-    if out_size != 7 or kx.shape != ky.shape or C % 2 or w > min(64, H0, W0):
+    # the kernel gives each warp 32 channels
+    if out_size != 7 or kx.shape != ky.shape or C % 32 or w > min(64, H0, W0):
         raise ValueError(f"roi_align_windows: unsupported shapes canvas "
                          f"{tuple(canvas.shape)}, ky {tuple(ky.shape)}, "
                          f"kx {tuple(kx.shape)}")
@@ -112,6 +115,13 @@ def roi_align_windows(canvas, plane, ys, xs, ky, kx) -> torch.Tensor:
     tensors = (canvas, plane, ys, xs, ky, kx)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("roi_align_windows: inputs must be contiguous")
+    # the kernel multiplies by Ky on bf16 tensor cores, which is exact only
+    # for bf16 values: one device-to-host read a call, which a CUDA graph's
+    # capture cannot make (its warm-up call, made eagerly, is checked)
+    if (not torch.cuda.is_current_stream_capturing()
+            and not torch.equal(ky, ky.to(torch.bfloat16).to(torch.float32))):
+        raise ValueError("roi_align_windows: ky must hold bfloat16 values "
+                         "(as window_inputs rounds them)")
     out = torch.empty((R, out_size, out_size, C), dtype=canvas.dtype,
                       device=canvas.device)
     lib = kernels.library()

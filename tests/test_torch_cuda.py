@@ -24,6 +24,8 @@ from macaque_tpu_torch.nn.roialign import (
     window_inputs)
 
 from attention_cases import cancelling_qkv
+from roialign_cases import edge_rois
+from window_attention_cases import cancelling_window_qkv
 
 pytestmark = pytest.mark.cuda
 STRIDES = (4, 8, 16, 32)
@@ -88,6 +90,84 @@ def test_roi_align_kernel(card, window):
     n = kernels.LAUNCHES["roi_align_windowed"]
     _close(roi_align_windows(*args), roi_align_windows_reference(*args))
     assert kernels.LAUNCHES["roi_align_windowed"] == n + 1
+
+
+def _roi_feats(card, rng, B, C, h0=152, w0=200):
+    return [torch.from_numpy(rng.normal(size=(B, h0 >> l, w0 >> l, C)))
+            .to(card, torch.bfloat16) for l in range(4)]
+
+
+# RoIs at the borders, wholly outside (a zero output), with bins under a
+# pixel, degenerate, large and ordinary (tests/roialign_cases.py), on square
+# 608-pixel frames
+@pytest.mark.parametrize("window", WINDOW_BUCKETS)
+def test_roi_align_kernel_at_the_edges(card, window):
+    rng = np.random.default_rng(30)
+    B, R, C = 2, 70, 256
+    feats = _roi_feats(card, rng, B, C, 152, 152)
+    boxes, lvl = edge_rois(31, B, R, 608)
+    rois = torch.from_numpy(boxes).to(card).float()
+    args = window_inputs(feats, rois, torch.from_numpy(lvl).to(card).long(), 7,
+                         STRIDES, window=window)
+    n = kernels.LAUNCHES["roi_align_windowed"]
+    got = roi_align_windows(*args)
+    assert kernels.LAUNCHES["roi_align_windowed"] == n + 1
+    want = roi_align_windows_reference(*args)
+    _close(got, want)
+    outside = torch.arange(B * R, device=card) % R % 7 == 3
+    assert (want[outside] == 0).all() and (got[outside] == 0).all()
+
+
+# one RoI, and the parity tier's 4,096-RoI call (16 frames x 256)
+@pytest.mark.parametrize("B, R", [(1, 1), (16, 256)])
+def test_roi_align_kernel_roi_counts(card, B, R):
+    rng = np.random.default_rng(32)
+    feats = _roi_feats(card, rng, B, 256)
+    xy = rng.uniform(0, 560, (B, R, 2))
+    wh = np.exp(rng.uniform(np.log(8), np.log(400), (B, R, 2)))
+    rois = torch.from_numpy(np.concatenate([xy, xy + wh], -1)).to(card).float()
+    area = (rois[..., 2] - rois[..., 0]) * (rois[..., 3] - rois[..., 1])
+    lvl = torch.floor(torch.log2(area.sqrt() / 56 + 1e-6)).clamp(0, 3).long()
+    args = window_inputs(feats, rois, lvl, 7, STRIDES, window=48)
+    assert args[4].shape[0] == B * R
+    _close(roi_align_windows(*args), roi_align_windows_reference(*args))
+
+
+def test_roi_align_refuses_a_channel_count_it_does_not_tile(card):
+    """32 channels a warp: C = 48 is refused before any launch."""
+    rng = np.random.default_rng(33)
+    feats = _roi_feats(card, rng, 1, 48)
+    rois = torch.tensor([[[10.0, 10.0, 90.0, 70.0]]], device=card)
+    args = window_inputs(feats, rois, torch.zeros((1, 1), dtype=torch.long,
+                                                  device=card), 7, STRIDES,
+                         window=16)
+    n = kernels.LAUNCHES["roi_align_windowed"]
+    with pytest.raises(ValueError):
+        roi_align_windows(*args)
+    assert kernels.LAUNCHES["roi_align_windowed"] == n
+
+
+def test_roi_align_refuses_a_ky_that_is_not_bf16(card):
+    """Ky meets the bf16 tensor cores unrounded: an entry that is not a bf16
+    value is refused before any launch."""
+    rng = np.random.default_rng(34)
+    feats = _roi_feats(card, rng, 1, 256)
+    rois = torch.tensor([[[10.0, 10.0, 90.0, 70.0]]], device=card)
+    args = list(window_inputs(feats, rois, torch.zeros(
+        (1, 1), dtype=torch.long, device=card), 7, STRIDES, window=16))
+    nz = args[4].nonzero()[0].tolist()
+    args[4] = args[4].clone()
+    args[4][tuple(nz)] += 2.0 ** -20
+    n = kernels.LAUNCHES["roi_align_windowed"]
+    with pytest.raises(ValueError):
+        roi_align_windows(*args)
+    assert kernels.LAUNCHES["roi_align_windowed"] == n
+
+
+# 44.7 KB of shared memory and at most 96 registers a thread: 5 blocks of 4
+# warps an SM (csrc/roi_align_windowed.cu)
+def test_roi_align_keeps_five_blocks_per_sm(card):
+    assert kernels.resident_blocks("roi_align_windowed") >= 5
 
 
 def _int8_inputs(card, M, K, N, seed=2):
@@ -227,6 +307,58 @@ def test_window_attention_kernel(card, dtype, masked, blocked):
     got = window_attention(qkv, bias, mask, heads, blocked)
     assert kernels.LAUNCHES["window_attention"] == n + 1
     _close(got, window_attention_reference(qkv, bias, mask, heads, blocked))
+
+
+# Swin-S's four widths with the parity frame's window counts (a 608 x 800
+# input: 22 x 29, 11 x 15, 6 x 8 and 3 x 4 windows), and one window
+SWIN_S = [(3, (22, 29)), (6, (11, 15)), (12, (6, 8)), (24, (3, 4))]
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("one", [True, False], ids=["one-window", "stage"])
+@pytest.mark.parametrize("heads, grid", SWIN_S, ids=["C96", "C192", "C384", "C768"])
+def test_window_attention_kernel_at_each_swin_s_width(card, heads, grid, one,
+                                                      dtype, masked, blocked):
+    from macaque_tpu_torch.nn.swin import _shift_mask
+
+    rng = np.random.default_rng(heads)
+    mask = torch.as_tensor(_shift_mask(7 * grid[0], 7 * grid[1], 7, 3),
+                           device=card)
+    if one:
+        mask = mask[-1:].contiguous()        # the corner window: masked keys
+    qkv = torch.from_numpy(rng.normal(size=(mask.shape[0], 49, 96 * heads))).to(
+        card, dtype)
+    bias = torch.from_numpy(rng.normal(0, 0.5, (heads, 49, 49))).to(
+        card, torch.float32)
+    m = mask if masked else None
+    n = kernels.LAUNCHES["window_attention"]
+    got = window_attention(qkv, bias, m, heads, blocked)
+    assert kernels.LAUNCHES["window_attention"] == n + 1
+    _close(got, window_attention_reference(qkv, bias, m, heads, blocked))
+
+
+def test_window_attention_unblocked_keeps_p_in_f32(card):
+    """Value rows that cancel (tests/window_attention_cases.py): P rounded
+    once to bf16, as the blocked variant rounds it, lands outside 2^-6 of
+    the largest output of the unblocked plain version (P in f32); the
+    unblocked kernel's hi + lo split of P holds it there."""
+    qkv, bias = cancelling_window_qkv(9, 24, 12)
+    qkv = torch.from_numpy(qkv).to(card, torch.bfloat16)
+    bias = torch.from_numpy(bias).to(card)
+    want = window_attention_reference(qkv, bias, None, 12, False)
+    single = window_attention_reference(qkv, bias, None, 12, True)
+    top = want.float().abs().max().item()
+    assert (single.float() - want.float()).abs().max().item() > 2.0 ** -6 * top
+    _close(window_attention(qkv, bias, None, 12, False), want)
+
+
+# 34.6 KB of shared memory and at most 80 registers a thread: 6 blocks of 4
+# warps an SM, so a stage-3 call (576 blocks) runs in one wave on 132 SMs
+@pytest.mark.parametrize("blocked", [0, 1])
+def test_window_attention_keeps_six_blocks_per_sm(card, blocked):
+    assert kernels.resident_blocks("window_attention", 1, blocked) >= 6
 
 
 def test_window_attention_refuses_what_it_was_not_built_for(card):

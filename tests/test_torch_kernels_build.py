@@ -45,7 +45,7 @@ def test_the_repository_headers_are_hashed_but_not_compiled():
     assert not [p for p in kernels.sources() if p.endswith(".cuh")]
 
 
-# ptx.cuh holds the PTX helpers of K1, K4, K5b and K6; attention_core.cuh
+# ptx.cuh holds the PTX helpers of K1-K4, K5b and K6; attention_core.cuh
 # the attention template of K1 and K4
 @pytest.mark.parametrize("header", ["ptx.cuh", "attention_core.cuh"])
 def test_each_repository_header_is_hashed_and_not_compiled(header):

@@ -18,6 +18,8 @@ from macaque_tpu_torch.nn.roialign import (
     WINDOW_BUCKETS, roi_align_windowed, roi_align_windowed_reference,
     roi_align_windows, roi_align_windows_reference, roi_window_buckets,
     window_inputs)
+from roialign_cases import (
+    edge_rois, separable_in_order, weighted_support, windows_of)
 
 STRIDES = (4, 8, 16, 32)
 
@@ -131,3 +133,81 @@ def test_wrapper_runs_plain_version_on_cpu():
         roi_align_windowed_reference(*_torch(*_case(5)), 7, STRIDES,
                                      window=24), rtol=0, atol=0)
     assert kernels.LAUNCHES == before
+
+
+# ---- what the K2 kernel's tensor-core design relies on (the kernel itself
+# runs only on a card: test_torch_cuda.py)
+
+def _edge_case(seed, B=2, R=28, C=32, H0=64):
+    """FPN levels 0-3 of a (4*H0)-pixel image (bf16 features) and the seven
+    kinds of tests/roialign_cases.py::edge_rois: borders, bins under a
+    pixel, wholly outside, degenerate, large and ordinary boxes."""
+    rng = np.random.default_rng(seed)
+    feats = [rng.normal(size=(B, H0 >> l, H0 >> l, C)).astype(np.float32)
+             for l in range(4)]
+    rois, lvl = edge_rois(seed, B, R, 4 * H0)
+    return feats, rois, lvl
+
+
+def _bf16_inputs(case, window):
+    feats, rois, lvl = _torch(*case)
+    return window_inputs([f.to(torch.bfloat16) for f in feats], rois, lvl, 7,
+                         STRIDES, window=window)
+
+
+@pytest.mark.parametrize("window", WINDOW_BUCKETS)
+def test_window_inputs_give_bf16_values_for_a_bf16_canvas(window):
+    """Ky and Kx reach the kernel as float32 holding bf16 values (rounded
+    to the canvas dtype, as the TPU kernel is fed), so the kernel's bf16
+    Ky x window products on the tensor cores are exact."""
+    canvas, *_, ky, kx = _bf16_inputs(_edge_case(10), window)
+    assert canvas.dtype == torch.bfloat16
+    for k in (ky, kx):
+        assert k.dtype == torch.float32
+        assert torch.equal(k, k.to(torch.bfloat16).float())
+        assert (k != 0).any()
+
+
+@pytest.mark.parametrize("window", WINDOW_BUCKETS)
+def test_weighted_support_covers_every_jax_weight(window):
+    """The rows and columns the kernel reads (a nonzero entry in the port's
+    bf16 Ky / Kx) cover every nonzero weight of the JAX package's geometry,
+    for RoIs at the borders, bins under a pixel, RoIs wholly outside
+    (no weight at all) and the rest; and sampling ratio 2 leaves at most
+    28 weighted rows and columns, so the kernel takes a column in one
+    pass."""
+    case = _edge_case(11)
+    _, ys_j, xs_j, ky_j, kx_j, w_j = jops._roi_window_geometry(
+        *_jax(*case), 7, STRIDES, 2, window)
+    *_, ys, xs, ky, kx = _bf16_inputs(case, window)
+    rows, cols = weighted_support(ky, kx)
+    n = ky.shape[0]
+    np.testing.assert_array_equal(ys.numpy(), np.asarray(ys_j).reshape(n))
+    np.testing.assert_array_equal(xs.numpy(), np.asarray(xs_j).reshape(n))
+    for k_j, live in ((ky_j, rows), (kx_j, cols)):
+        nonzero = np.asarray(k_j).reshape(n, 7, w_j) != 0
+        assert not (nonzero & ~live.numpy()[:, None, :]).any()
+        assert int(live.sum(-1).max()) <= 28
+    # edge_rois' kind 3, wholly outside: no weighted pixel, a zero output
+    weighted = (rows.any(-1) & cols.any(-1)).numpy()
+    outside = np.arange(n) % 28 % 7 == 3
+    assert not weighted[outside].any()
+    assert weighted[~outside].sum() > 0
+
+
+@pytest.mark.parametrize("window", WINDOW_BUCKETS)
+def test_product_over_the_support_equals_the_dense_product_bit_for_bit(window):
+    """The separable product in float32, every sum in ascending order, over
+    the weighted rows and columns only equals the product over the whole
+    window bit for bit: the terms the kernel skips are exact zeros."""
+    canvas, plane, ys, xs, ky, kx = _bf16_inputs(_edge_case(12), window)
+    win = windows_of(canvas, plane, ys, xs, ky.shape[-1])
+    rows, cols = weighted_support(ky, kx)
+    dense = separable_in_order(ky, kx, win)
+    sparse = separable_in_order(ky, kx, win, rows, cols)
+    assert torch.equal(sparse, dense)
+    assert rows.sum() < rows.numel()              # the support skips rows
+    np.testing.assert_allclose(
+        dense.to(torch.bfloat16).float().numpy(),
+        roi_align_windows_reference(canvas, plane, ys, xs, ky, kx).float().numpy(),
+        atol=2.0 ** -7 * dense.abs().max().item())

@@ -23,6 +23,7 @@ from macaque_tpu_torch.nn.attention import (
 from macaque_tpu_torch.nn.convert import swin_maskrcnn_from_jax
 from macaque_tpu_torch.nn.swin import SwinConfig, _shift_mask
 from tests.torch_parity import DET, SWIN, jax_detector, load, random_variables
+from window_attention_cases import cancelling_window_qkv, padded_tile
 
 T = 49
 
@@ -131,3 +132,65 @@ def test_swin_with_kernel_switch_matches_jax(monkeypatch):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-4, rtol=0)
         # the einsum path scales q before the dot: the same function
         np.testing.assert_allclose(g.numpy(), p.numpy(), atol=2e-4, rtol=0)
+
+
+# ---- the K3 kernel's padded-tile arithmetic (the kernel itself runs only on
+# a card: test_torch_cuda.py), emulated by tests/window_attention_cases.py
+
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "shifted"])
+@pytest.mark.parametrize("variant", KERNELS)
+def test_padded_tile_equals_the_reference_f32(variant, masked):
+    """The 64-row tile (Q, K, V zero-padded, keys 49-55 at -inf, keys 56-63
+    at P = 0, padded queries dropped), computed in float32 throughout,
+    is the plain version's function: float32 summation order only."""
+    _, blocked = KERNELS[variant]
+    qkv, bias, mask = (torch.from_numpy(a) for a in _inputs(6, 2, 8, 3))
+    m = mask if masked else None
+    got = padded_tile(qkv, bias, m, 3, "f32")
+    want = window_attention_reference(qkv, bias, m, 3, blocked)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "shifted"])
+@pytest.mark.parametrize("variant", KERNELS)
+def test_padded_tile_matches_pallas_kernels_bf16(variant, masked):
+    """The tile as the kernel runs it on bf16 input, P rounded to bf16 once
+    (blocked) or split into bf16 hi + lo (unblocked), against the JAX
+    variant in interpret mode: one bf16 ulp of the output (2^-7 of the
+    largest value)."""
+    fn, blocked = KERNELS[variant]
+    qkv, bias, mask = _inputs(7, 2, 8, 6)
+    tiled = np.tile(mask, (2, 1, 1)) if masked else None
+    want = np.asarray(fn(jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(bias),
+                         None if tiled is None else jnp.asarray(tiled),
+                         heads=6, interpret=True), np.float32)
+    got = padded_tile(torch.from_numpy(qkv).to(torch.bfloat16),
+                      torch.from_numpy(bias),
+                      torch.from_numpy(mask) if masked else None, 6,
+                      "bf16" if blocked else "split")
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               atol=2.0 ** -7 * np.abs(want).max())
+
+
+def test_split_p_keeps_the_unblocked_kernels_f32_accuracy():
+    """The unblocked variant keeps P at f32 precision on the card by splitting
+    it into bf16 hi + lo (|P - hi - lo| <= 2^-16 P). On window inputs whose
+    value rows cancel (max |v| some 40 times the largest output), the split
+    tile stays within 2^-12 of the JAX f32 kernel's largest output
+    (``fused_window_attention``, interpret mode, on the same bf16 values in
+    float32); P rounded once to bf16 (2^-8 P) misses that bound, and the
+    card's 2^-6 as well."""
+    qkv, bias = cancelling_window_qkv(0, 4, 3)
+    qkv = torch.from_numpy(qkv).to(torch.bfloat16).float()   # bf16 values
+    want = np.asarray(pa.fused_window_attention(
+        jnp.asarray(qkv.numpy()), jnp.asarray(bias), None, heads=3,
+        interpret=True))
+    bias = torch.from_numpy(bias)
+    split = padded_tile(qkv, bias, None, 3, "split").numpy()
+    single = padded_tile(qkv, bias, None, 3, "bf16").numpy()
+    top = np.abs(want).max()
+    assert qkv[..., 192:].abs().max().item() >= 32 * top    # the values cancel
+    assert np.abs(split - want).max() <= 2.0 ** -12 * top  # seen 2^-13.2
+    # seen 2^-3.9: outside the card's 2^-6 tolerance too
+    assert np.abs(single - want).max() > 2.0 ** -6 * top
