@@ -32,11 +32,21 @@ Phases, one line each with elapsed seconds:
                the unpacked attention dispatcher
                (``nn.attention.attention``, K4) at the ViT-huge crop shape,
                and the split int8 matmul (``nn.int8.quant_int8_matmul_split``,
-               K5a) at ViT-huge's fc1.
+               K5a) at ViT-huge's fc1;
+  5. step2   - step 2 (cross-view keyframe matching) through
+               ``pipeline.step2.run_step2`` in float32 on the port's
+               synthetic scene at the reference rig's size (8 cameras, 4
+               animals, 48 detection slots a keyframe) over 4,800 frames
+               (399 keyframes), with its time split, SVT iterations and peak
+               memory; held against the ground truth, and its first 96
+               keyframes card against CPU in float64. It runs no
+               hand-written kernel (the JAX package runs step 2 as plain
+               XLA).
 The second-to-last line is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``. Any failed phase raises, so the
 script exits non-zero and prints no result; so it does without a CUDA
-device. ``--phases device,build,kernels`` runs a subset;
+device. ``--phases device,build,kernels`` runs a subset (``device,step2``
+step 2 alone);
 ``--phases device,build,kernels,main,profile`` adds a torch.profiler pass
 over one chunk (device time by kernel, idle share, a chrome trace under
 chiprun_out/).
@@ -1359,6 +1369,180 @@ def phase_split_path(gen):
     return launches
 
 
+# step 2 at the reference rig's size: 8 cameras, 4 animals
+# (CrossViewConfig.max_people), 48 detection slots a keyframe; the
+# recording cut from 10 minutes at 24 fps (14,400 frames) to a third:
+# there run_step2 took 530.7 s on an H100, 511.2 s of it 500 SVT
+# iterations of 1022 ms (H100 80GB HBM3, 700 W; PERF.md section 4)
+STEP2_SCENE = {"n_cam": 8, "n_animal": 4, "n_frame": 4800}
+STEP2_HELD = 96       # keyframes held card against CPU in float64
+
+
+def step2_scene(root, n_cam, n_animal, n_frame):
+    """The port's synthetic scene written as step 1 writes its output: one
+    ``alldata.json`` a camera. Returns the rig and the ground-truth joints
+    (A, T, 17, 3)."""
+    from macaque_tpu_torch.pipeline.artifacts import write_alldata
+    from macaque_tpu_torch.tools.synthetic import (
+        make_test_rig, simulate_scene, synthesize_alldata)
+
+    rig = make_test_rig(n_cam)
+    kp3d = simulate_scene(n_animal, n_frame, seed=0)
+    for cam_id, rows in zip(rig.camera_ids, synthesize_alldata(rig, kp3d)):
+        write_alldata(os.path.join(root, cam_id), rows,
+                      np.arange(n_frame, dtype=np.int32))
+    return rig, kp3d
+
+
+def check_step2_truth(keyframes, kp3d):
+    """(b) Every written person holds one animal's track id (a + 1) in
+    each camera it fills (the ghost id A + 7 never); at least 99 % of the
+    (keyframe, animal) pairs are recovered; the median joint error of
+    ``pose3d`` against the ground truth is below 20 mm."""
+    A = kp3d.shape[0]
+    found, errs = set(), []
+    for kf in keyframes:
+        f = kf["frame"]
+        for bcomb, p3d in zip(kf["bcomb"], kf["pose3d"]):
+            ids = {int(b) for b in bcomb if b >= 0}
+            if len(ids) != 1 or not 1 <= min(ids) <= A:
+                raise AssertionError(f"step2: frame {f}: person "
+                                     f"{bcomb.tolist()} is not one animal")
+            a = ids.pop() - 1
+            found.add((f, a))
+            e = np.linalg.norm(p3d - kp3d[a, f], axis=-1)
+            errs.extend(e[np.isfinite(e)])
+    share = len(found) / (len(keyframes) * A)
+    med = float(np.median(errs)) if errs else float("inf")
+    log(f"step2 against the ground truth: {sum(len(k['bcomb']) for k in keyframes)}"
+        f" persons, each one animal; {len(found)} of {len(keyframes) * A} "
+        f"(keyframe, animal) pairs recovered ({share:.4f}); median joint "
+        f"error {med:.3f} mm over {len(errs)} joints")
+    if share < 0.99:
+        raise AssertionError(f"step2 recovered {share:.4f} < 0.99 of the pairs")
+    if not med < 20.0:
+        raise AssertionError(f"step2 median joint error {med:.3f} mm >= 20 mm")
+
+
+def check_step2_devices(packed, rig, cfg, n_held):
+    """(a) The first ``n_held`` keyframes' packed tensors through the
+    affinity, ``match_svt`` and ``triangulate_poses`` on the card and on
+    the CPU, both in float64: match matrices equal, W and the matched
+    persons' 3D points within 1e-9 of their largest value. Returns the
+    CPU's bcomb set of each keyframe."""
+    from macaque_tpu_torch.pipeline.geometry3d import triangulate_poses
+    from macaque_tpu_torch.pipeline.step2 import (
+        affinity_and_match, bcomb_of, match_persons)
+
+    held = {k: v if k == "cam_idx" else v[:n_held] for k, v in packed.items()}
+    cams, W, match = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        cams[dev] = rig.omni(dev, torch.float64)
+        w, m = affinity_and_match(cams[dev], held, cfg, 6)
+        W[dev], match[dev] = w.cpu().numpy(), m.cpu().numpy()
+    finals, kp = match_persons(cams["cpu"], held, match["cpu"], rig.n_cam,
+                               cfg.n_joint)
+    p3d = {dev: triangulate_poses(cam, torch.from_numpy(kp).to(cam.K.device))
+           .cpu().numpy() for dev, cam in cams.items()}
+    dW = np.abs(W["cuda"] - W["cpu"]).max() / np.abs(W["cpu"]).max()
+    same_nan = np.array_equal(np.isnan(p3d["cuda"]), np.isnan(p3d["cpu"]))
+    dP = np.nanmax(np.abs(p3d["cuda"] - p3d["cpu"])) / np.nanmax(
+        np.abs(p3d["cpu"]))
+    n_diff = int((match["cuda"] != match["cpu"]).sum())
+    log(f"step2 card against CPU, float64, {n_held} keyframes: W rel "
+        f"{dW:.3e}, match entries differing {n_diff}, {len(finals)} persons' "
+        f"3D points rel {dP:.3e}, NaN pattern equal {same_nan}")
+    if n_diff or not (dW <= 1e-9 and dP <= 1e-9 and same_nan):
+        raise AssertionError("step2 differs between the card and the CPU")
+    sets = [set() for _ in range(n_held)]
+    for ti, slots in finals:
+        sets[ti].add(tuple(bcomb_of(held, ti, slots, rig.n_cam).tolist()))
+    return sets
+
+
+def time_svt_svd(rig, packed, cfg):
+    """One SVD of the SVT's shape (every keyframe's symmetric 48 x 48 first
+    iterate, float32), as ``match_svt`` calls it, beside the symmetric
+    eigendecomposition of the same batch: ms a call, CUDA events. Timed
+    only; the port runs the SVD."""
+    from macaque_tpu_torch.pipeline.step2 import _affinity_program
+
+    cam = rig.omni("cuda", torch.float32)
+    idx = torch.as_tensor(packed["cam_idx"], device="cuda")
+    W = _affinity_program(
+        cam, idx, torch.as_tensor(packed["pose"], dtype=torch.float32,
+                                  device="cuda"),
+        torch.as_tensor(packed["valid"], device="cuda"),
+        torch.as_tensor(packed["cids"], device="cuda"),
+        torch.tensor(cfg.alpha_id, dtype=torch.float32))
+    A = W * ~torch.eye(W.shape[-1], dtype=torch.bool, device="cuda")
+    A = (A + A.transpose(-1, -2)) / 2
+    svd = cuda_ms(lambda: torch.linalg.svd(A, full_matrices=False), reps=3,
+                  warmup=1)
+    eigh = cuda_ms(lambda: torch.linalg.eigh(A), reps=3, warmup=1)
+    log(f"step2: one SVD of {tuple(A.shape)} float32 {svd:.3f} ms "
+        f"(torch.linalg.svd); torch.linalg.eigh of the same {eigh:.3f} ms")
+
+
+def phase_step2(scene=STEP2_SCENE, n_held=STEP2_HELD):
+    """Step 2 (cross-view keyframe matching) at full width through
+    ``pipeline.step2.run_step2`` on the card in float32, from the port's
+    synthetic ``alldata.json`` files: its wall time and split, SVT
+    iterations and host reads, and peak memory; then checks (a) and (b),
+    and (c) the count of the held keyframes whose bcomb sets differ
+    between the float32 card run and the float64 CPU run (printed, not
+    asserted: the SVT's 0.5 threshold can flip on rounding). Step 2 runs
+    no hand-written kernel; its launches are read around the run."""
+    import tempfile
+
+    from macaque_tpu_torch import kernels
+    from macaque_tpu_torch.core.config import CrossViewConfig
+    from macaque_tpu_torch.pipeline.artifacts import read_pickle
+    from macaque_tpu_torch.pipeline.step2 import load_keyframes, run_step2
+
+    cfg = CrossViewConfig()
+    # the scene's large JSON goes to a temporary directory inside the
+    # checkout (nothing is written outside it), removed at the end
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_step2_") as root:
+        t = time.perf_counter()
+        rig, kp3d = step2_scene(root, **scene)
+        log(f"step2: scene of {scene} written in "
+            f"{time.perf_counter() - t:.1f}s")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        times = {}
+        t = time.perf_counter()
+        out = run_step2(root, rig, cfg, redo=True, times=times)
+        wall = time.perf_counter() - t
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        mk = read_pickle(out)
+        it = times["svt_iterations"]
+        first = times["svt_first_converged"]
+        log(f"step2: run_step2 {len(mk)} keyframes, M = {rig.n_cam * 6}, "
+            f"J = {cfg.n_joint}, float32, in {wall:.3f}s: "
+            + " ".join(f"{k}={times[k]:.4f}s" for k in (
+                "read_vote", "pack", "affinity", "svt", "best_comb", "write"))
+            + f"; SVT {it} iterations, {1e3 * times['svt'] / it:.3f} ms an "
+            f"iteration, {times['svt_host_reads']} host reads (each keyframe "
+            f"first converged by iteration median {np.median(first):.0f}, "
+            f"max {first.max()}, {int((first == 0).sum())} never), "
+            f"{times['svt'] / wall:.3f} of the wall; peak memory "
+            f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above "
+            f"the {base / 2**30:.3f} GiB held before); launches {launches}")
+        check_step2_truth(mk, kp3d)
+        _, packed = load_keyframes(root, rig, cfg, 6)
+    time_svt_svd(rig, packed, cfg)
+    cpu_sets = check_step2_devices(packed, rig, cfg, n_held)
+    differ = sum(set(map(tuple, (b.tolist() for b in kf["bcomb"]))) != s
+                 for kf, s in zip(mk, cpu_sets))
+    log(f"step2: {differ} of the first {n_held} keyframes' bcomb sets differ "
+        "between the float32 card run and the float64 CPU run")
+    return launches
+
+
 def phase_profile(perception, store, T):
     """One 16-frame chunk of process_camera under torch.profiler: device
     time by kernel, and device busy time against the wall clock."""
@@ -1391,7 +1575,7 @@ def phase_profile(perception, store, T):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="device,build,kernels,main")
+    ap.add_argument("--phases", default="device,build,kernels,main,step2")
     phases = ap.parse_args(argv).phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1433,6 +1617,8 @@ def main(argv=None) -> int:
                 raise AssertionError(f"no path launched kernel {k}")
         if "profile" in phases:
             phase_profile(perception, store, T)
+    if "step2" in phases:
+        phase_step2()
     for e in entries:
         e["launches"] = launches.get(e["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

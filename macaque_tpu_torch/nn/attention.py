@@ -129,6 +129,10 @@ def window_attention(qkv, bias, mask, heads: int,
                          f"got T={T}, d={D}")
     if not qkv.is_contiguous():
         raise ValueError("window_attention: qkv must be contiguous")
+    if qkv.dtype == torch.bfloat16 and qkv.data_ptr() % 16:
+        # the bf16 kernel stages qkv rows by 16-byte cp.async
+        raise ValueError("window_attention: a bfloat16 qkv must start on a "
+                         "16-byte boundary")
     if (bias.dtype != torch.float32 or tuple(bias.shape) != (heads, T, T)
             or not bias.is_contiguous() or bias.device != qkv.device):
         raise ValueError(f"window_attention: bias must be contiguous float32 "

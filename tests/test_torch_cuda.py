@@ -373,6 +373,20 @@ def test_window_attention_refuses_what_it_was_not_built_for(card):
                          torch.zeros((3, 49, 49), device=card), 3)
 
 
+def test_window_attention_refuses_a_misaligned_bf16_qkv(card):
+    """The bf16 kernel stages qkv by 16-byte copies: a contiguous view at
+    an odd bf16 element offset is refused with the wrapper's ValueError
+    before any launch, not a CUDA error code."""
+    bias = torch.zeros((3, 49, 49), device=card)
+    buf = torch.zeros(4 * 49 * 288 + 1, device=card, dtype=torch.bfloat16)
+    qkv = buf[1:].view(4, 49, 288)
+    assert qkv.is_contiguous() and qkv.data_ptr() % 16
+    n = kernels.LAUNCHES["window_attention"]
+    with pytest.raises(ValueError, match="16-byte"):
+        window_attention(qkv, bias, None, 3)
+    assert kernels.LAUNCHES["window_attention"] == n
+
+
 def _bf16(card, rng, *shape, scale=1.0):
     return (torch.from_numpy(rng.normal(size=shape) * scale)
             .to(card, torch.bfloat16))
@@ -537,3 +551,107 @@ def test_fused_swin_s_trunk(card):
         assert g.shape == w.shape and torch.isfinite(g.float()).all()
         span = (w.float().max() - w.float().min()).item()
         assert (g.float() - w.float()).abs().max().item() <= 2.0 ** -5 * span
+
+
+# ---------------------------------------------------------------- step 2
+# Step 2 runs no hand-written kernel: plain PyTorch on CUDA tensors, held
+# here against the CPU on the port's synthetic scene (8 cameras x 6 slots:
+# M = 48).
+
+def _step2_scene(tmp_path, n_frame=120):
+    from macaque_tpu_torch.pipeline.artifacts import write_alldata
+    from macaque_tpu_torch.tools.synthetic import (
+        make_test_rig, simulate_scene, synthesize_alldata)
+
+    rig = make_test_rig(8)
+    kp3d = simulate_scene(4, n_frame, seed=0)
+    for cam_id, rows in zip(rig.camera_ids, synthesize_alldata(rig, kp3d)):
+        write_alldata(str(tmp_path / "scene" / cam_id), rows,
+                      np.arange(n_frame, dtype=np.int32))
+    return rig, str(tmp_path / "scene")
+
+
+def _step2(rig, root, out, **kw):
+    import shutil
+
+    from macaque_tpu_torch.pipeline.artifacts import read_pickle
+    from macaque_tpu_torch.pipeline.step2 import run_step2
+
+    shutil.copytree(root, out)
+    return read_pickle(run_step2(out, rig, **kw))
+
+
+def test_step2_affinity_and_svt_on_the_card_match_the_cpu(card, tmp_path):
+    """geometry_affinity and match_svt at M = 48: in float64 the card
+    equals the CPU to 1e-9 and in its match matrices; in float32 the
+    affinity stays within 1e-3 of the CPU's float64."""
+    from macaque_tpu_torch.association import geometry_affinity, match_svt
+    from macaque_tpu_torch.cameras.omnidir import omnidir_undistort
+    from macaque_tpu_torch.core.config import CrossViewConfig
+    from macaque_tpu_torch.pipeline.step2 import load_keyframes
+
+    rig, root = _step2_scene(tmp_path)
+    _, packed = load_keyframes(root, rig, CrossViewConfig(), 6)
+    same = packed["cam_idx"][:, None] == packed["cam_idx"][None, :]
+    out = {}
+    for dev, dt in (("cpu", torch.float64), (card, torch.float64),
+                    (card, torch.float32)):
+        cam = rig.omni(dev, dt)
+        idx = torch.as_tensor(packed["cam_idx"], device=dev)
+        pose = torch.as_tensor(packed["pose"], dtype=dt, device=dev)
+        valid = torch.as_tensor(packed["valid"], device=dev)
+        und = omnidir_undistort(cam.__class__(*[f[idx] for f in cam]),
+                                pose[..., :2])
+        geo = geometry_affinity(cam, torch.nan_to_num(und),
+                                torch.nan_to_num(pose[..., 2]), idx, valid)
+        match = match_svt(geo, torch.as_tensor(same, device=dev), valid=valid,
+                          block_size=6)
+        out[(str(dev), dt)] = (geo.cpu().double().numpy(), match.cpu().numpy())
+    geo64, match64 = out[("cpu", torch.float64)]
+    geo_c, match_c = out[(str(card), torch.float64)]
+    assert geo64.shape == (9, 48, 48)
+    assert np.abs(geo_c - geo64).max() <= 1e-9
+    np.testing.assert_array_equal(match_c, match64)
+    assert np.abs(out[(str(card), torch.float32)][0] - geo64).max() <= 1e-3
+
+
+def test_run_step2_does_not_follow_allow_tf32(card, tmp_path):
+    """run_step2 in float32 gives the same persons with TF32 matmuls
+    allowed as without: its products are elementwise sums or run under
+    a local full-float32 guard."""
+    rig, root = _step2_scene(tmp_path)
+    flag = torch.backends.cuda.matmul.allow_tf32
+    try:
+        got = {}
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            got[tf32] = _step2(rig, root, str(tmp_path / f"tf32_{tf32}"),
+                               device=card)
+            assert torch.backends.cuda.matmul.allow_tf32 == tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    for a, b in zip(got[False], got[True]):
+        assert [x.tolist() for x in a["bcomb"]] == [x.tolist() for x in b["bcomb"]]
+        for p, q in zip(a["pose3d"], b["pose3d"]):
+            np.testing.assert_array_equal(p, q)
+
+
+def test_run_step2_runs_on_the_card_by_default(card, tmp_path):
+    """With no device, run_step2 computes on the card (its CUDA memory
+    peak grows) in float32, and writes what device='cuda' writes; the
+    float64 CPU run finds the same persons."""
+    rig, root = _step2_scene(tmp_path)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.max_memory_allocated()
+    got = _step2(rig, root, str(tmp_path / "default"))
+    assert torch.cuda.max_memory_allocated() > base
+    want = _step2(rig, root, str(tmp_path / "cuda"), device="cuda")
+    cpu = _step2(rig, root, str(tmp_path / "cpu"), device="cpu",
+                 dtype=torch.float64)
+    for a, b, c in zip(got, want, cpu):
+        assert [x.tolist() for x in a["bcomb"]] == [x.tolist() for x in b["bcomb"]]
+        assert {tuple(x) for x in a["bcomb"]} == {tuple(x) for x in c["bcomb"]}
+        for p, q in zip(a["pose3d"], b["pose3d"]):
+            assert p.dtype == np.float32
+            np.testing.assert_array_equal(p, q)

@@ -1,8 +1,9 @@
 """The port stands alone: no file of ``macaque_tpu_torch`` nor
-``chip_smoke.py`` imports JAX, Flax or the JAX package; ``cv2``, ``yaml``
-and ``triton`` are imported only inside functions; and the port, with
-every module ``chip_smoke.py`` imports, imports with jax, flax, cv2 and
-yaml all unavailable (as on the machine with the card)."""
+``chip_smoke.py`` imports JAX, Flax or the JAX package; ``cv2``, ``yaml``,
+``triton``, ``h5py`` and ``networkx`` are imported only inside functions;
+and the port, with every module ``chip_smoke.py`` imports, imports with
+jax, flax, cv2, yaml, h5py and networkx all unavailable (as on the
+machine with the card)."""
 
 import ast
 import os
@@ -16,7 +17,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "macaque_tpu_torch")
 SMOKE = os.path.join(ROOT, "chip_smoke.py")
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "macaque_tpu"}
-LAZY = {"cv2", "yaml", "triton"}
+LAZY = {"cv2", "yaml", "triton", "h5py", "networkx"}
 
 
 def _sources():
@@ -57,7 +58,8 @@ def test_port_imports_without_jax_cv2_yaml():
         m.name for m in pkgutil.walk_packages([PORT], "macaque_tpu_torch.")]
     code = (
         "import sys, importlib\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'cv2', 'yaml'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'cv2', 'yaml', 'h5py', "
+        "'networkx'):\n"
         "    sys.modules[m] = None\n"
         f"for m in {port_mods + smoke_mods!r}:\n"
         "    importlib.import_module(m)\n"
