@@ -37,16 +37,27 @@ Phases, one line each with elapsed seconds:
                ``pipeline.step2.run_step2`` in float32 on the port's
                synthetic scene at the reference rig's size (8 cameras, 4
                animals, 48 detection slots a keyframe) over 4,800 frames
-               (399 keyframes), with its time split, SVT iterations and peak
-               memory; held against the ground truth, and its first 96
-               keyframes card against CPU in float64. It runs no
-               hand-written kernel (the JAX package runs step 2 as plain
-               XLA).
+               (399 keyframes), with its time split, SVT iterations and
+               peak memory; held against the ground truth, and its first
+               96 keyframes card against CPU in float64;
+  6. step3   - step 3 (cross-frame tracklet graph) through
+               ``pipeline.step3.run_step3`` on step 2's output, float32:
+               its split, flow solves and trace calls; every tracklet and
+               identity held against the ground truth, and the first 600
+               frames card against CPU in float64;
+  7. step4   - step 4 (Viterbi 2D filter, DLT, LM-CGLS refinement)
+               through ``pipeline.step4.run_step4`` on step 3's output,
+               float32: its split, LM iterations, CG sweeps, host reads and
+               peak memory; each animal's median joint error against the
+               ground truth; the first 240 frames card against CPU in
+               float64, and with TF32 matmuls allowed.
+Steps 2-4 run no hand-written kernel (the JAX package runs them as plain
+XLA); a step phase runs the step phases before it, on one scene.
 The second-to-last line is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``. Any failed phase raises, so the
 script exits non-zero and prints no result; so it does without a CUDA
-device. ``--phases device,build,kernels`` runs a subset (``device,step2``
-step 2 alone);
+device. ``--phases device,build,kernels`` runs a subset (``device,step4``
+steps 2-4 alone);
 ``--phases device,build,kernels,main,profile`` adds a torch.profiler pass
 over one chunk (device time by kernel, idle share, a chrome trace under
 chiprun_out/).
@@ -1369,13 +1380,19 @@ def phase_split_path(gen):
     return launches
 
 
-# step 2 at the reference rig's size: 8 cameras, 4 animals
+# steps 2-4 at the reference rig's size: 8 cameras, 4 animals
 # (CrossViewConfig.max_people), 48 detection slots a keyframe; the
 # recording cut from 10 minutes at 24 fps (14,400 frames) to a third:
-# there run_step2 took 530.7 s on an H100, 511.2 s of it 500 SVT
-# iterations of 1022 ms (H100 80GB HBM3, 700 W; PERF.md section 4)
+# there run_step2 alone took 530.7 s, 511.2 s of it 500 SVT iterations of
+# 1022 ms (H100 80GB HBM3, 700 W; PERF.md section 4)
 STEP2_SCENE = {"n_cam": 8, "n_animal": 4, "n_frame": 4800}
 STEP2_HELD = 96       # keyframes held card against CPU in float64
+STEP3_HELD = 600      # frames of step 3 held card against CPU in float64
+STEP4_HELD = 240      # frames of step 4 held card against CPU in float64
+# the held refinement: fifteen LM iterations of two CG sweeps. Past about
+# ten sweeps CGLS amplifies rounding about fourfold a sweep (in the JAX
+# package too), so two devices agree to rounding only on few sweeps
+STEP4_BOUNDED = {"lm_iters": 15, "cg_iters": 2}
 
 
 def step2_scene(root, n_cam, n_animal, n_frame):
@@ -1484,63 +1501,291 @@ def time_svt_svd(rig, packed, cfg):
         f"(torch.linalg.svd); torch.linalg.eigh of the same {eigh:.3f} ms")
 
 
-def phase_step2(scene=STEP2_SCENE, n_held=STEP2_HELD):
+def phase_step2(root, scene=STEP2_SCENE, n_held=STEP2_HELD):
     """Step 2 (cross-view keyframe matching) at full width through
     ``pipeline.step2.run_step2`` on the card in float32, from the port's
-    synthetic ``alldata.json`` files: its wall time and split, SVT
-    iterations and host reads, and peak memory; then checks (a) and (b),
-    and (c) the count of the held keyframes whose bcomb sets differ
-    between the float32 card run and the float64 CPU run (printed, not
-    asserted: the SVT's 0.5 threshold can flip on rounding). Step 2 runs
-    no hand-written kernel; its launches are read around the run."""
-    import tempfile
-
+    synthetic ``alldata.json`` files written into ``root`` (where steps 3
+    and 4 read them): its wall time and split, SVT iterations and host
+    reads, and peak memory; then checks (a) and (b), and (c) the count of
+    the held keyframes whose bcomb sets differ between the float32 card
+    run and the float64 CPU run (printed, not asserted: the SVT's 0.5
+    threshold can flip on rounding). Step 2 runs no hand-written kernel;
+    its launches are read around the run. Returns the rig and the ground
+    truth."""
     from macaque_tpu_torch import kernels
     from macaque_tpu_torch.core.config import CrossViewConfig
     from macaque_tpu_torch.pipeline.artifacts import read_pickle
     from macaque_tpu_torch.pipeline.step2 import load_keyframes, run_step2
 
     cfg = CrossViewConfig()
-    # the scene's large JSON goes to a temporary directory inside the
-    # checkout (nothing is written outside it), removed at the end
-    with tempfile.TemporaryDirectory(dir=REPO, prefix=".chip_smoke_step2_") as root:
-        t = time.perf_counter()
-        rig, kp3d = step2_scene(root, **scene)
-        log(f"step2: scene of {scene} written in "
-            f"{time.perf_counter() - t:.1f}s")
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launches()
-        times = {}
-        t = time.perf_counter()
-        out = run_step2(root, rig, cfg, redo=True, times=times)
-        wall = time.perf_counter() - t
-        launches = dict(kernels.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
-        mk = read_pickle(out)
-        it = times["svt_iterations"]
-        first = times["svt_first_converged"]
-        log(f"step2: run_step2 {len(mk)} keyframes, M = {rig.n_cam * 6}, "
-            f"J = {cfg.n_joint}, float32, in {wall:.3f}s: "
-            + " ".join(f"{k}={times[k]:.4f}s" for k in (
-                "read_vote", "pack", "affinity", "svt", "best_comb", "write"))
-            + f"; SVT {it} iterations, {1e3 * times['svt'] / it:.3f} ms an "
-            f"iteration, {times['svt_host_reads']} host reads (each keyframe "
-            f"first converged by iteration median {np.median(first):.0f}, "
-            f"max {first.max()}, {int((first == 0).sum())} never), "
-            f"{times['svt'] / wall:.3f} of the wall; peak memory "
-            f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above "
-            f"the {base / 2**30:.3f} GiB held before); launches {launches}")
-        check_step2_truth(mk, kp3d)
-        _, packed = load_keyframes(root, rig, cfg, 6)
+    t = time.perf_counter()
+    rig, kp3d = step2_scene(root, **scene)
+    log(f"step2: scene of {scene} written in "
+        f"{time.perf_counter() - t:.1f}s")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    times = {}
+    t = time.perf_counter()
+    out = run_step2(root, rig, cfg, redo=True, times=times)
+    wall = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    mk = read_pickle(out)
+    it = times["svt_iterations"]
+    first = times["svt_first_converged"]
+    log(f"step2: run_step2 {len(mk)} keyframes, M = {rig.n_cam * 6}, "
+        f"J = {cfg.n_joint}, float32, in {wall:.3f}s: "
+        + " ".join(f"{k}={times[k]:.4f}s" for k in (
+            "read_vote", "pack", "affinity", "svt", "best_comb", "write"))
+        + f"; SVT {it} iterations, {1e3 * times['svt'] / it:.3f} ms an "
+        f"iteration, {times['svt_host_reads']} host reads (each keyframe "
+        f"first converged by iteration median {np.median(first):.0f}, "
+        f"max {first.max()}, {int((first == 0).sum())} never), "
+        f"{times['svt'] / wall:.3f} of the wall; peak memory "
+        f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above "
+        f"the {base / 2**30:.3f} GiB held before); launches {launches}")
+    check_step2_truth(mk, kp3d)
+    _, packed = load_keyframes(root, rig, cfg, 6)
     time_svt_svd(rig, packed, cfg)
     cpu_sets = check_step2_devices(packed, rig, cfg, n_held)
     differ = sum(set(map(tuple, (b.tolist() for b in kf["bcomb"]))) != s
                  for kf, s in zip(mk, cpu_sets))
     log(f"step2: {differ} of the first {n_held} keyframes' bcomb sets differ "
         "between the float32 card run and the float64 CPU run")
-    return launches
+    return rig, kp3d, wall
+
+
+def check_step3_truth(trk, cid, n_animal):
+    """(d) Every tracklet of ``track.pickle`` holds one animal's track id
+    (a + 1) in every camera it fills, and its ``collar_id.pickle``
+    identity, where it has one, is that animal's; every animal has a
+    tracklet with its identity. Returns the share of (frame, animal)
+    pairs up to the last keyframe that carry their identity."""
+    cover = {}
+    for k, t in trk.items():
+        ids = {int(v) for v in np.unique(t) if v >= 0}
+        if len(ids) != 1 or not 1 <= min(ids) <= n_animal:
+            raise AssertionError(f"step3: tracklet {k} holds track ids "
+                                 f"{sorted(ids)}, not one animal's")
+        a = ids.pop() - 1
+        got = {int(v) for v in np.unique(cid[k]) if v >= 0}
+        if got - {a}:
+            raise AssertionError(f"step3: tracklet {k} of animal {a} has "
+                                 f"identity {sorted(got)}")
+        rows = (t >= 0).any(1) & (cid[k] == a)
+        cover[a] = cover.get(a, np.zeros_like(rows)) | rows
+    if sorted(cover) != list(range(n_animal)):
+        raise AssertionError(f"step3: animals {sorted(cover)} of "
+                             f"{n_animal} have a tracklet with identity")
+    n = len(next(iter(trk.values())))
+    return sum(int(c.sum()) for c in cover.values()) / (n * n_animal)
+
+
+def held_copy(root, dst, n_frame, files=(), rows=None):
+    """``root``'s ``files`` in ``dst``, cut to their first ``n_frame``
+    frames where they are per frame, and ``rows`` ({camera id: alldata
+    rows}) cut the same way as ``alldata.json`` files."""
+    from macaque_tpu_torch.pipeline.artifacts import (
+        read_pickle, write_alldata, write_pickle)
+
+    for cam_id, data in (rows or {}).items():
+        write_alldata(os.path.join(dst, cam_id), data[:n_frame],
+                      np.arange(n_frame, dtype=np.int32))
+    for f in files:
+        obj = read_pickle(os.path.join(root, f))
+        if f == "match_keyframe.pickle":
+            obj = [kf for kf in obj if kf["frame"] < n_frame]
+        elif f == "kp2d.pickle":
+            obj = obj[:, :n_frame]
+        write_pickle(os.path.join(dst, f), obj)
+    return dst
+
+
+def check_traces(rig, rows, n_frame):
+    """``TraceCalculator`` card against CPU in float64 (within 1e-9 of the
+    largest value) and the float32 card against the float64 CPU, on every
+    animal's whole-rig trace over the first ``n_frame`` frames."""
+    from macaque_tpu_torch.pipeline.step3 import TraceCalculator
+
+    rows = [rows[c][:n_frame] for c in rig.camera_ids]
+    frames = np.arange(n_frame)
+    out = {}
+    for dev, dt in (("cpu", torch.float64), ("cuda", torch.float64),
+                    ("cuda", torch.float32)):
+        tc = TraceCalculator(rig, device=dev, dtype=dt)
+        out[(dev, dt)] = np.stack([
+            tc.trace(rows, np.full((n_frame, rig.n_cam), a + 1), frames)
+            for a in range(4)])
+    want = out[("cpu", torch.float64)]
+    scale = np.nanmax(np.abs(want))
+    d64 = np.nanmax(np.abs(out[("cuda", torch.float64)] - want)) / scale
+    d32 = np.nanmax(np.abs(out[("cuda", torch.float32)] - want))
+    same = np.array_equal(np.isnan(out[("cuda", torch.float64)]),
+                          np.isnan(want))
+    log(f"step3: TraceCalculator on 4 x {n_frame} frames, card against CPU "
+        f"in float64: rel {d64:.3e}, NaN pattern equal {same}; float32 card "
+        f"against float64 CPU: {d32:.4f} mm")
+    if not (same and d64 <= 1e-9):
+        raise AssertionError("step3 traces differ between the card and the CPU")
+
+
+def phase_step3(root, rig, kp3d, n_held=STEP3_HELD):
+    """Step 3 (cross-frame tracklet graph) through
+    ``pipeline.step3.run_step3`` on the card in float32, on the step-2
+    phase's output: its split, the flow solves and ``TraceCalculator``'s
+    device calls and seconds; check (d) against the ground truth; (e) the
+    first ``n_held`` frames through step 3 on the card and on the CPU,
+    both float64, writing equal ``track.pickle``, ``collar_id.pickle`` and
+    ``kp2d.pickle``; and the traces card against CPU."""
+    from macaque_tpu_torch import kernels
+    from macaque_tpu_torch.pipeline.artifacts import read_pickle
+    from macaque_tpu_torch.pipeline.step3 import run_step3
+
+    kernels.reset_launches()
+    times = {}
+    t = time.perf_counter()
+    run_step3(root, rig, redo=True, times=times)
+    wall = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    trk = read_pickle(os.path.join(root, "track.pickle"))
+    cid = read_pickle(os.path.join(root, "collar_id.pickle"))
+    log(f"step3: run_step3 {kp3d.shape[1]} frames, {rig.n_cam} cameras, "
+        f"float32, in {wall:.3f}s: "
+        + " ".join(f"{k}={times[k]:.4f}s" for k in (
+            "read", "connect", "build", "trim", "ids", "stitch", "dedup",
+            "last_one", "write"))
+        + f"; flow {times['flow_solves']} solves in {times['flow']:.4f}s; "
+        f"TraceCalculator {times['trace_calls']} device calls in "
+        f"{times['trace']:.4f}s; {len(trk)} tracklets; launches {launches}")
+    share = check_step3_truth(trk, cid, kp3d.shape[0])
+    log(f"step3 against the ground truth: every tracklet one animal's, "
+        f"every identity its animal's; {share:.4f} of the (frame, animal) "
+        f"pairs carry their identity")
+    from macaque_tpu_torch.pipeline.artifacts import read_alldata
+
+    rows = {c: read_alldata(os.path.join(root, c))[0][:n_held]
+            for c in rig.camera_ids}
+    got = {}
+    for dev in ("cuda", "cpu"):
+        d = held_copy(root, os.path.join(root, f"held3_{dev}"), n_held,
+                      ("match_keyframe.pickle",), rows)
+        run_step3(d, rig, redo=True, device=dev, dtype=torch.float64)
+        got[dev] = [read_pickle(os.path.join(d, f)) for f in
+                    ("track.pickle", "collar_id.pickle", "kp2d.pickle")]
+    (tg, cg, kg), (tc, cc, kc) = got["cuda"], got["cpu"]
+    equal = (list(tg) == list(tc) and list(cg) == list(cc)
+             and all(np.array_equal(tg[k], tc[k]) for k in tc)
+             and all(np.array_equal(cg[k], cc[k]) for k in cc)
+             and np.array_equal(kg, kc, equal_nan=True))
+    log(f"step3 card against CPU, float64, {n_held} frames: {len(tc)} "
+        f"tracklets, track/collar_id/kp2d equal {equal}")
+    if not equal:
+        raise AssertionError("step3 differs between the card and the CPU")
+    check_traces(rig, rows, n_held)
+    return wall
+
+
+def check_step4_truth(out, kp3d):
+    """(f) Each animal's median joint error against the ground truth under
+    its own identity is below 30 mm (tests/test_four_animals.py:46,
+    tests/test_eight_cameras.py:79)."""
+    T = out["kp3d"].shape[1]
+    for a in range(kp3d.shape[0]):
+        e = np.linalg.norm(out["kp3d"][a] - kp3d[a, :T], axis=-1)
+        med = float(np.nanmedian(e))
+        log(f"step4 animal {a}: median joint error {med:.3f} mm, finite "
+            f"joints {np.isfinite(e).mean():.4f}")
+        if not med < 30.0:
+            raise AssertionError(f"step4 animal {a}: median joint error "
+                                 f"{med:.3f} mm >= 30 mm")
+
+
+def phase_step4(root, rig, kp3d, n_held=STEP4_HELD):
+    """Step 4 (Viterbi 2D filter, DLT, LM-CGLS refinement) through
+    ``pipeline.step4.run_step4`` on the card in float32, on step 3's
+    output: its split, LM iterations, CG sweeps, host reads and peak
+    memory; check (f) against the ground truth; (g) the first ``n_held``
+    frames on the card and on the CPU in float64: the same ``kp2d_f`` NaN
+    pattern and values within 1e-9 of the largest, and with the held
+    refinement budget equal LM iterations and CG sweeps and ``kp3d``
+    within 1e-6 of its largest value; (h) with
+    ``torch.backends.cuda.matmul.allow_tf32`` on, the float32 card run of
+    those frames keeps ``kp3d`` within the same 1e-6."""
+    from macaque_tpu_torch import kernels
+    from macaque_tpu_torch.pipeline.artifacts import read_pickle
+    from macaque_tpu_torch.pipeline.step4 import run_step4
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    times = {}
+    t = time.perf_counter()
+    out = read_pickle(run_step4(root, rig, redo=True, times=times))
+    wall = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"step4: run_step4 {out['kp3d'].shape[1]} frames, 4 animals, "
+        f"{rig.n_cam} cameras, float32, in {wall:.3f}s: "
+        + " ".join(f"{k}={times[k]:.4f}s" for k in (
+            "viterbi", "dlt", "refine", "reproject", "write"))
+        + f"; Viterbi {times['viterbi_frame_steps']} frame steps; LM "
+        f"iterations {times['lm_iters']}, CG sweeps {times['cg_iters']} "
+        f"an animal; the batch's loop {times['lm_lm_steps']} LM steps, "
+        f"{times['lm_cg_sweeps']} CG sweeps, {times['lm_host_reads']} host "
+        f"reads, {1e3 * times['refine'] / max(times['lm_cg_sweeps'], 1):.3f}"
+        f" ms of refinement a sweep; peak "
+        f"memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB "
+        f"above the {base / 2**30:.3f} GiB held before); launches "
+        f"{launches}")
+    check_step4_truth(out, kp3d)
+
+    res = {}
+    for dev, dt, tf32 in (("cuda", torch.float64, False),
+                          ("cpu", torch.float64, False),
+                          ("cuda", torch.float32, False),
+                          ("cuda", torch.float32, True)):
+        d = held_copy(root, os.path.join(root, f"held4_{dev}_{dt}_{tf32}"),
+                      n_held, ("kp2d.pickle",))
+        flag = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            tm = {}
+            run_step4(d, rig, redo=True, device=dev, dtype=dt, times=tm,
+                      refine_overrides=STEP4_BOUNDED if dt == torch.float64
+                      else None)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = flag
+        res[(dev, dt, tf32)] = (read_pickle(os.path.join(d, "kp2d_f.pickle")),
+                                read_pickle(os.path.join(d, "kp3d.pickle")),
+                                tm)
+    (fg, og, tg), (fc, oc, tc) = (res[("cuda", torch.float64, False)],
+                                  res[("cpu", torch.float64, False)])
+    same_f = np.array_equal(np.isnan(fg), np.isnan(fc))
+    dF = np.nanmax(np.abs(fg - fc)) / np.nanmax(np.abs(fc))
+    same_k = np.array_equal(np.isnan(og["kp3d"]), np.isnan(oc["kp3d"]))
+    dK = np.nanmax(np.abs(og["kp3d"] - oc["kp3d"])) / np.nanmax(
+        np.abs(oc["kp3d"]))
+    same_it = (tg["lm_iters"], tg["cg_iters"]) == (tc["lm_iters"],
+                                                   tc["cg_iters"])
+    log(f"step4 card against CPU, float64, {n_held} frames: kp2d_f NaN "
+        f"pattern equal {same_f}, rel {dF:.3e}; held refinement "
+        f"{STEP4_BOUNDED}: LM iterations {tg['lm_iters']} / {tc['lm_iters']},"
+        f" CG sweeps {tg['cg_iters']} / {tc['cg_iters']}, kp3d NaN pattern "
+        f"equal {same_k}, rel {dK:.3e}")
+    if not (same_f and dF <= 1e-9 and same_k and dK <= 1e-6 and same_it):
+        raise AssertionError("step4 differs between the card and the CPU")
+    k0 = res[("cuda", torch.float32, False)][1]["kp3d"]
+    k1 = res[("cuda", torch.float32, True)][1]["kp3d"]
+    dT = np.nanmax(np.abs(k1 - k0)) / np.nanmax(np.abs(k0))
+    log(f"step4 float32 card, {n_held} frames, with allow_tf32 against "
+        f"without: NaN pattern equal {np.array_equal(np.isnan(k0), np.isnan(k1))}"
+        f", kp3d rel {dT:.3e}")
+    if not (np.array_equal(np.isnan(k0), np.isnan(k1)) and dT <= 1e-6):
+        raise AssertionError("step4 follows allow_tf32")
+    return wall
 
 
 def phase_profile(perception, store, T):
@@ -1575,7 +1820,8 @@ def phase_profile(perception, store, T):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="device,build,kernels,main,step2")
+    ap.add_argument("--phases",
+                    default="device,build,kernels,main,step2,step3,step4")
     phases = ap.parse_args(argv).phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1617,8 +1863,26 @@ def main(argv=None) -> int:
                 raise AssertionError(f"no path launched kernel {k}")
         if "profile" in phases:
             phase_profile(perception, store, T)
-    if "step2" in phases:
-        phase_step2()
+    steps = [p for p in ("step2", "step3", "step4") if p in phases]
+    if steps:
+        import tempfile
+
+        # steps 3 and 4 read what the step before wrote: each step phase
+        # runs the ones before it. The scene's large JSON goes to a
+        # temporary directory inside the checkout (nothing is written
+        # outside it), removed at the end
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=REPO,
+                                         prefix=".chip_smoke_steps_") as root:
+            rig, kp3d, wall = phase_step2(root)
+            walls = [wall]
+            if steps[-1] in ("step3", "step4"):
+                walls.append(phase_step3(root, rig, kp3d))
+            if steps[-1] == "step4":
+                walls.append(phase_step4(root, rig, kp3d))
+        log(f"steps 2-{steps[-1][-1]}: run_step* walls "
+            f"{' + '.join(f'{w:.1f}' for w in walls)} = {sum(walls):.1f}s; "
+            f"with the scene and the checks {time.perf_counter() - t:.1f}s")
     for e in entries:
         e["launches"] = launches.get(e["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

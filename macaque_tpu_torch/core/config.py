@@ -1,5 +1,5 @@
 """One typed configuration tree for the whole pipeline (host copy for the
-PyTorch port; the anipose TOML writer comes with step 4).
+PyTorch port, with the anipose ``config.toml`` writer of step 4).
 
 The reference scatters configuration across three tiers — YAML runtime
 config (calib/config.yaml), anipose TOML templates (configs/*.toml,
@@ -11,7 +11,9 @@ single object (SURVEY.md §5 'unify into one typed config tree').
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field, asdict
+
 # 17 COCO-style macaque keypoints (reference: model/pose/macaque.py:15-130,
 # step4:201-204)
 MACAQUE_BODYPARTS = [
@@ -184,6 +186,40 @@ class PipelineConfig:
 
     def constraints_weak(self):
         return constraint_indices(MACAQUE_CONSTRAINTS_WEAK)
+
+    def to_anipose_config_toml(self, path: str) -> None:
+        """Materialize an anipose-compatible config.toml (what step4 writes
+        from configs/config_tmpl.toml; reference step4:101-104)."""
+        from macaque_tpu_torch.utils.tomlwriter import dump_toml
+
+        doc = {
+            "project": self.data_name,
+            "model_folder": os.path.abspath(self.results_dir),
+            "nesting": 1,
+            "video_extension": "mp4",
+            "filter": {
+                "enabled": self.filter.enabled,
+                "type": self.filter.type,
+                "score_threshold": self.filter.score_threshold,
+                "n_back": self.filter.n_back,
+                "offset_threshold": self.filter.offset_threshold,
+                "multiprocessing": False,
+            },
+            "triangulation": {
+                "triangulate": True,
+                "ransac": self.triangulation.ransac,
+                "optim": self.triangulation.optim,
+                "constraints": [list(c) for c in MACAQUE_CONSTRAINTS],
+                "constraints_weak": [list(c) for c in MACAQUE_CONSTRAINTS_WEAK],
+                "scale_smooth": self.triangulation.scale_smooth,
+                "scale_length": self.triangulation.scale_length,
+                "scale_length_weak": self.triangulation.scale_length_weak,
+                "reproj_error_threshold": self.triangulation.reproj_error_threshold,
+                "score_threshold": self.triangulation.score_threshold,
+                "n_deriv_smooth": self.triangulation.n_deriv_smooth,
+            },
+        }
+        dump_toml(doc, path)
 
     def asdict(self) -> dict:
         return asdict(self)

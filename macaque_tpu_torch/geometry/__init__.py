@@ -1,6 +1,7 @@
-"""Batched multi-view geometry on tensors: masked DLT triangulation and
-reprojection error (port of ``macaque_tpu/geometry/triangulate.py``;
-RANSAC and the 3D refinement come with step 4)."""
+"""Batched multi-view geometry on tensors: masked DLT triangulation,
+camera-subset RANSAC, reprojection error and the constrained 3D refinement
+(port of ``macaque_tpu/geometry``; ``refine_points_3d_possible`` waits for
+ROADMAP.md §1 item 7)."""
 
 from macaque_tpu_torch.geometry.triangulate import (
     triangulate_dlt,
@@ -8,10 +9,15 @@ from macaque_tpu_torch.geometry.triangulate import (
     reprojection_error,
     reprojection_error_mean,
 )
+from macaque_tpu_torch.geometry.ransac import triangulate_ransac
+from macaque_tpu_torch.geometry.refine3d import refine_points_3d, RefineConfig
 
 __all__ = [
     "triangulate_dlt",
     "triangulate_dlt_pinv",
     "reprojection_error",
     "reprojection_error_mean",
+    "triangulate_ransac",
+    "refine_points_3d",
+    "RefineConfig",
 ]

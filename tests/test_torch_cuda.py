@@ -655,3 +655,171 @@ def test_run_step2_runs_on_the_card_by_default(card, tmp_path):
         for p, q in zip(a["pose3d"], b["pose3d"]):
             assert p.dtype == np.float32
             np.testing.assert_array_equal(p, q)
+
+
+# ----------------------------------------------------------- steps 3-4
+# Steps 3 and 4 run no hand-written kernel either: the Viterbi batch, the
+# LM-CGLS solver and both entry points on CUDA tensors, held against the
+# CPU. The refinement is held on fifteen LM iterations of two CG sweeps:
+# past about ten sweeps CGLS amplifies rounding about fourfold a sweep
+# (in the JAX package too), so two devices agree to rounding only there.
+
+BOUNDED = {"lm_iters": 15, "cg_iters": 2}
+
+
+def _steps_scene(tmp_path, n_frame=120):
+    """Step 2 of the synthetic scene on the CPU in float64, the input of
+    steps 3 and 4."""
+    rig, root = _step2_scene(tmp_path, n_frame)
+    _step2(rig, root, str(tmp_path / "s2"), device="cpu", dtype=torch.float64)
+    return rig, str(tmp_path / "s2")
+
+
+def _copy(src, dst):
+    import shutil
+
+    shutil.copytree(src, dst)
+    return dst
+
+
+def test_viterbi_batch_on_the_card_matches_the_cpu(card):
+    from macaque_tpu_torch.filters.viterbi import viterbi_filter_joints
+
+    rng = np.random.default_rng(0)
+    truth = np.cumsum(rng.normal(0, 4, (64, 200, 17, 1, 2)), axis=1) + 300
+    pts = truth + rng.normal(0, 1, truth.shape)
+    scs = rng.uniform(0.1, 1.0, pts.shape[:-1])
+    pts[rng.random(scs.shape) < 0.1] = np.nan
+    out = {}
+    for dev, dt in (("cpu", torch.float64), (card, torch.float64),
+                    (card, torch.float32)):
+        p, s = viterbi_filter_joints(torch.as_tensor(pts, dtype=dt, device=dev),
+                                     torch.as_tensor(scs, dtype=dt, device=dev))
+        out[(str(dev), dt)] = (p.cpu().double().numpy(),
+                               s.cpu().double().numpy())
+    want = out[("cpu", torch.float64)]
+    for dt, tol in ((torch.float64, 1e-9), (torch.float32, 1e-2)):
+        got = out[(str(card), dt)]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+            assert np.nanmax(np.abs(g - w)) <= tol
+
+
+def test_lm_solve_on_the_card_matches_the_cpu(card):
+    from macaque_tpu_torch.geometry.lm import LMConfig, lm_solve
+
+    rng = np.random.default_rng(1)
+    A, y = rng.normal(size=(4, 40, 8)), rng.normal(size=(4, 40))
+    x0 = rng.normal(size=(4, 8))
+    got = {}
+    for dev in ("cpu", card):
+        At, yt = (torch.as_tensor(v, device=dev) for v in (A, y))
+
+        def resid(x):
+            z = (At * x[:, None, :]).sum(-1)
+            return torch.tanh(z) * 2 + 0.1 * z ** 2 - yt
+
+        x, info = lm_solve(resid, torch.as_tensor(x0, device=dev),
+                           LMConfig(lm_iters=40, cg_iters=30, ftol=1e-9,
+                                    cg_rtol=1e-6), return_info=True)
+        got[str(dev)] = (x.cpu().numpy(), info["lm_iters"].tolist(),
+                         info["cg_iters"].tolist())
+    (xc, lc, cc), (xg, lg, cg) = got["cpu"], got[str(card)]
+    assert (lg, cg) == (lc, cc)
+    assert np.abs(xg - xc).max() <= 1e-9
+
+
+def test_run_step3_on_the_card_matches_the_cpu(card, tmp_path):
+    from macaque_tpu_torch.pipeline.artifacts import read_pickle
+    from macaque_tpu_torch.pipeline.step3 import run_step3
+
+    rig, s2 = _steps_scene(tmp_path)
+    got = {}
+    for dev in ("cpu", card):
+        d = _copy(s2, str(tmp_path / f"s3_{dev}"))
+        times = {}
+        run_step3(d, rig, device=dev, dtype=torch.float64, times=times)
+        got[str(dev)] = [read_pickle(f"{d}/{f}") for f in (
+            "track.pickle", "collar_id.pickle", "kp2d.pickle")]
+    (tc, cc, kc), (tg, cg, kg) = got["cpu"], got[str(card)]
+    assert list(tg) == list(tc) and list(cg) == list(cc) and len(tc) >= 4
+    for k in tc:
+        np.testing.assert_array_equal(tg[k], tc[k])
+        np.testing.assert_array_equal(cg[k], cc[k])
+    np.testing.assert_array_equal(kg, kc)
+
+
+def _step4_on(rig, s3, out, **kw):
+    from macaque_tpu_torch.pipeline.artifacts import read_pickle
+    from macaque_tpu_torch.pipeline.step4 import run_step4
+
+    d = _copy(s3, out)
+    times = {}
+    res = read_pickle(run_step4(d, rig, times=times, **kw))
+    return read_pickle(f"{d}/kp2d_f.pickle"), res, times
+
+
+@pytest.fixture
+def step3_out(tmp_path):
+    from macaque_tpu_torch.pipeline.step3 import run_step3
+
+    rig, s2 = _steps_scene(tmp_path)
+    run_step3(s2, rig, device="cpu", dtype=torch.float64)
+    return rig, s2
+
+
+def test_run_step4_on_the_card_matches_the_cpu(card, tmp_path, step3_out):
+    """float64: kp2d_f equal to 1e-9, and over the held refinement budget
+    equal LM iterations and CG sweeps and kp3d within 1e-6 mm."""
+    rig, s3 = step3_out
+    got = {dev: _step4_on(rig, s3, str(tmp_path / f"s4_{dev}"), device=dev,
+                          dtype=torch.float64, refine_overrides=BOUNDED)
+           for dev in ("cpu", "cuda")}
+    (fc, oc, tc), (fg, og, tg) = got["cpu"], got["cuda"]
+    np.testing.assert_array_equal(np.isnan(fg), np.isnan(fc))
+    assert np.nanmax(np.abs(fg - fc)) <= 1e-9
+    assert (tg["lm_iters"], tg["cg_iters"]) == (tc["lm_iters"], tc["cg_iters"])
+    for k in ("kp3d", "kp3d_score", "kp3d_err"):
+        np.testing.assert_array_equal(np.isnan(og[k]), np.isnan(oc[k]))
+        assert np.nanmax(np.abs(og[k] - oc[k])) <= 1e-6
+
+
+def test_run_step4_does_not_follow_allow_tf32(card, tmp_path, step3_out):
+    """float32 on the card at the production budget: kp3d is the same
+    with TF32 matmuls allowed (no product of step 4 is a matmul)."""
+    rig, s3 = step3_out
+    flag = torch.backends.cuda.matmul.allow_tf32
+    got = {}
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            got[tf32] = _step4_on(rig, s3, str(tmp_path / f"tf32_{tf32}"),
+                                  device=card)[1]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    np.testing.assert_array_equal(got[True]["kp3d"], got[False]["kp3d"])
+
+
+def test_steps_3_and_4_run_on_the_card_by_default(card, tmp_path):
+    """With no device, run_step3 and run_step4 compute on the card in
+    float32 and write what device='cuda' writes."""
+    from macaque_tpu_torch.pipeline.artifacts import read_pickle
+    from macaque_tpu_torch.pipeline.step3 import run_step3
+
+    rig, s2 = _steps_scene(tmp_path)
+    out = {}
+    for name, kw in (("default", {}), ("cuda", {"device": "cuda"})):
+        d = _copy(s2, str(tmp_path / name))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.max_memory_allocated()
+        run_step3(d, rig, **kw)
+        f, res, _ = _step4_on(rig, d, str(tmp_path / f"{name}_4"),
+                              refine_overrides=BOUNDED, **kw)
+        assert torch.cuda.max_memory_allocated() > base
+        out[name] = (read_pickle(f"{d}/track.pickle"), f, res)
+    (ta, fa, ra), (tb, fb, rb) = out["default"], out["cuda"]
+    assert list(ta) == list(tb)
+    assert fa.dtype == np.float32
+    np.testing.assert_array_equal(fa, fb)
+    np.testing.assert_array_equal(ra["kp3d"], rb["kp3d"])

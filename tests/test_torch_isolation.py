@@ -48,6 +48,16 @@ def test_no_jax_and_lazy_optional_imports(path):
     assert not LAZY & top, f"{path} imports {LAZY & top} at module level"
 
 
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_networkx_anywhere(path):
+    """The card machine has no networkx: step 3's min-cost flow is the
+    port's own, and no function of the port imports networkx, not even
+    lazily."""
+    with open(path) as f:
+        names = {n for n, _ in _imports(ast.parse(f.read(), path))}
+    assert "networkx" not in names, f"{path} imports networkx"
+
+
 def test_port_imports_without_jax_cv2_yaml():
     with open(SMOKE) as f:
         smoke_mods = sorted({(n.module if isinstance(n, ast.ImportFrom) else a.name)
