@@ -50,7 +50,18 @@ Phases, one line each with elapsed seconds:
                float32: its split, LM iterations, CG sweeps, host reads and
                peak memory; each animal's median joint error against the
                ground truth; the first 240 frames card against CPU in
-               float64, and with TF32 matmuls allowed.
+               float64, and with TF32 matmuls allowed;
+  8. pipeline - ``pipeline.runner.run_pipeline``, the whole pipeline from
+               video to ``kp3d.pickle``: 8 RGBA imgstores of 640x480 (10
+               s at 24 fps, 4 animals, written and read without cv2) through
+               steps 1-4 with the oracle ``SyntheticPerception``, float32,
+               render off (no cv2 on the card): every artifact, every
+               tracklet one animal's, median joint errors, a second call
+               that skips every stage, ``tools.visualize.overlay_points``
+               card against CPU, the RGBA reader's frames; then 32 frames
+               of 2048x1536 from an RGBA store through ``run_step1`` and
+               the parity networks (K1 and K2 counted around the call),
+               rows equal to ``process_camera`` on the same frames.
 Steps 2-4 run no hand-written kernel (the JAX package runs them as plain
 XLA); a step phase runs the step phases before it, on one scene.
 The second-to-last line is a JSON object with one entry per kernel; the
@@ -1687,7 +1698,7 @@ def phase_step3(root, rig, kp3d, n_held=STEP3_HELD):
     return wall
 
 
-def check_step4_truth(out, kp3d):
+def check_step4_truth(out, kp3d, name="step4"):
     """(f) Each animal's median joint error against the ground truth under
     its own identity is below 30 mm (tests/test_four_animals.py:46,
     tests/test_eight_cameras.py:79)."""
@@ -1695,10 +1706,10 @@ def check_step4_truth(out, kp3d):
     for a in range(kp3d.shape[0]):
         e = np.linalg.norm(out["kp3d"][a] - kp3d[a, :T], axis=-1)
         med = float(np.nanmedian(e))
-        log(f"step4 animal {a}: median joint error {med:.3f} mm, finite "
+        log(f"{name} animal {a}: median joint error {med:.3f} mm, finite "
             f"joints {np.isfinite(e).mean():.4f}")
         if not med < 30.0:
-            raise AssertionError(f"step4 animal {a}: median joint error "
+            raise AssertionError(f"{name} animal {a}: median joint error "
                                  f"{med:.3f} mm >= 30 mm")
 
 
@@ -1788,6 +1799,244 @@ def phase_step4(root, rig, kp3d, n_held=STEP4_HELD):
     return wall
 
 
+PIPELINE_SCENE = {"n_cam": 8, "n_animal": 4, "n_frame": 240}  # 10 s, 24 fps
+PIPELINE_CHUNK = 120     # frames an RGBA chunk: 2 chunks a store
+FULL_FRAMES = 32         # 2048x1536 frames through run_step1 (check v)
+STAGES = ("step1_2d", "step2_crossview", "step3_crossframe", "step4_3d")
+ARTIFACTS = ("match_keyframe.pickle", "track.pickle", "collar_id.pickle",
+             "kp2d.pickle", "kp2d_f.pickle", "kp3d.pickle", "config.toml",
+             "calibration.toml")
+COINCIDE_PX = 5.0        # two animals' projected centroids this close
+                         # coincide in that view (check i)
+
+
+def check_pipeline_tracklets(rd, rig, proj):
+    """(i) Every tracklet of ``track.pickle`` is one animal's: each
+    (frame, camera) entry's ``alldata.json`` box is centred nearest that
+    animal's projected joints in that frame, the rule by which the oracle
+    perception chose the keypoints it gave the box. Entries where another
+    animal's projected centroid lies within ``COINCIDE_PX`` of that one's
+    are skipped: the two coincide in that view and the oracle's choice
+    between them is arbitrary. Returns the tracklets, the animals that own
+    one, and the entries seen and skipped."""
+    from macaque_tpu_torch.pipeline.artifacts import read_alldata, read_pickle
+
+    rows, fnums = zip(*(read_alldata(os.path.join(rd, c))
+                        for c in rig.camera_ids))
+    trk = read_pickle(os.path.join(rd, "track.pickle"))
+
+    def animal(c, f, tid):
+        """The animal the entry's box is centred nearest, or None where
+        two animals coincide in the view."""
+        box = next(r[1:5] for r in rows[c][f] if r[0] == tid)
+        cen = np.nanmean(proj[c, :, int(fnums[c][f])], axis=1)   # (A, 2)
+        d = np.sum((cen - [(box[0] + box[2]) / 2, (box[1] + box[3]) / 2]) ** 2,
+                   axis=1)
+        a = int(np.nanargmin(d))
+        sep = np.linalg.norm(cen - cen[a], axis=1)
+        sep[a] = np.inf
+        return None if np.nanmin(sep) < COINCIDE_PX else a
+
+    owners, n, skipped = set(), 0, 0
+    for k, t in trk.items():
+        got = [animal(c, f, int(t[f, c])) for f, c in zip(*np.nonzero(t >= 0))]
+        n += len(got)
+        skipped += got.count(None)
+        got = set(got) - {None}
+        if len(got) != 1:
+            raise AssertionError(f"pipeline: tracklet {k} spans animals "
+                                 f"{sorted(got)}")
+        owners |= got
+    if owners != set(range(proj.shape[1])):
+        raise AssertionError(f"pipeline: only animals {sorted(owners)} own "
+                             "a tracklet")
+    return len(trk), owners, n, skipped
+
+
+def pipeline_run(cfg, rig, factory):
+    """run_pipeline on the card, render off; returns its wall, stdout and
+    the manifest it wrote."""
+    import contextlib
+    import io
+
+    from macaque_tpu_torch.pipeline.runner import run_pipeline
+
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rd = run_pipeline(cfg, rig, factory, render=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    with open(os.path.join(rd, "run_manifest.json")) as f:
+        manifest = json.load(f)
+    if sorted(manifest) != sorted(STAGES) or any(
+            v["calls"] != 1 for v in manifest.values()):
+        raise AssertionError(f"pipeline: run_manifest.json {manifest}")
+    return rd, wall, out.getvalue(), manifest
+
+
+def check_overlay_points(rd, rig):
+    """(iii) ``overlay_points`` for every camera on the card against the
+    CPU, both float64: pixels within 1e-6, NaN patterns and draw masks
+    equal."""
+    from macaque_tpu_torch.pipeline.artifacts import read_pickle
+    from macaque_tpu_torch.tools.visualize import overlay_points
+
+    data = read_pickle(os.path.join(rd, "kp3d.pickle"))
+    worst = 0.0
+    for c in range(rig.n_cam):
+        pg, mg = overlay_points(data, rig, c, "cuda", torch.float64)
+        pc, mc = overlay_points(data, rig, c, "cpu", torch.float64)
+        if not (np.array_equal(np.isnan(pg), np.isnan(pc))
+                and np.array_equal(mg, mc)):
+            raise AssertionError(f"overlay_points camera {c}: NaN pattern or "
+                                 "draw mask differs between card and CPU")
+        worst = max(worst, float(np.nanmax(np.abs(pg - pc))))
+    log(f"pipeline (iii): overlay_points on {rig.n_cam} cameras x "
+        f"{pg.shape[0]} animals x {pg.shape[1]} frames, card against CPU in "
+        f"float64: |d| {worst:.3e} px, draw masks equal")
+    if not worst <= 1e-6:
+        raise AssertionError("overlay_points differs between card and CPU")
+    log("pipeline: the render's cv2 drawing and mp4v encoding are not run on "
+        "the card (its machine has no cv2); tier-1 holds them on the CPU "
+        "(tests/test_torch_runner.py)")
+
+
+def check_full_width_store(root, perception):
+    """(v) ``FULL_FRAMES`` 2048x1536 frames written as an RGBA store and
+    read by ``run_step1`` through the parity ``TorchPerception``: its rows
+    equal ``process_camera`` on the same frames in memory, and K1 and K2
+    launch in the store run. Returns that run's launches."""
+    from macaque_tpu_torch import kernels
+    from macaque_tpu_torch.core.config import Step1Config
+    from macaque_tpu_torch.pipeline.artifacts import read_alldata
+    from macaque_tpu_torch.pipeline.step1 import process_camera, run_step1
+    from macaque_tpu_torch.video.imgstore import write_imgstore
+    from macaque_tpu_torch.video.timegrid import make_time_grid
+
+    frames = synthetic_frames(FULL_FRAMES)
+    t = time.perf_counter()
+    write_imgstore(os.path.join(root, "full", "cage.cam0"), frames,
+                   fourcc="RGBA", chunksize=16)
+    wrote = time.perf_counter() - t
+    kernels.reset_launches()
+    t = time.perf_counter()
+    run_step1("cage", os.path.join(root, "out"), os.path.join(root, "full"),
+              perception, chunk=16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    store = MemoryStore(frames)
+    T = make_time_grid(store.ftimes, 24.0)
+    process_camera(store, os.path.join(root, "mem"), T, perception,
+                   Step1Config(), chunk=16, redo=True)
+    got, fn_got = read_alldata(os.path.join(root, "out", "cage", "cam0"))
+    want, fn_want = read_alldata(os.path.join(root, "mem"))
+    n_det = sum(len(r) for r in got)
+    log(f"pipeline (v): {FULL_FRAMES} frames of 2048x1536 written as an RGBA "
+        f"store in {wrote:.3f}s; run_step1 through the parity perception "
+        f"{len(got)} rows in {wall:.3f}s, {n_det} animal entries; launches "
+        f"{launches}; rows equal to process_camera in memory: {got == want}")
+    if got != want or not np.array_equal(fn_got, fn_want) or n_det == 0:
+        raise AssertionError("pipeline: run_step1 on the RGBA store differs "
+                             "from process_camera on the same frames")
+    for k in ("packed_attention", "roi_align_windowed"):
+        if launches[k] <= 0:
+            raise AssertionError(f"pipeline: run_step1 never launched {k}")
+    return launches
+
+
+def phase_pipeline(perception, scene=PIPELINE_SCENE):
+    """``pipeline.runner.run_pipeline`` end to end on the card: the port's
+    synthetic scene (the reference rig's 8 cameras, 4 animals, 10 s at 24
+    fps) rendered as RGBA imgstores of 640x480 in 2 chunks each, steps 1-4
+    with the oracle ``SyntheticPerception``, float32, render off (the card
+    has no cv2). Checks: (i) every artifact, the manifest's four stages,
+    every tracklet one animal's, each animal's median joint error below
+    30 mm; (ii) a second call skips every stage and rewrites no artifact;
+    (iii) ``overlay_points`` card against CPU; (iv) the RGBA reader gives
+    the frames drawn; (v) a full-width camera through the real networks
+    from an RGBA store. Returns the launches of (v)."""
+    import tempfile
+
+    from macaque_tpu_torch.core.config import PipelineConfig
+    from macaque_tpu_torch.tools.synthetic import (
+        SyntheticPerception, draw_frames, make_test_rig, project_scene,
+        render_stores, simulate_scene)
+    from macaque_tpu_torch.video.imgstore import ImgStoreReader
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=REPO,
+                                     prefix=".chip_smoke_pipeline_") as root:
+        rig = make_test_rig(scene["n_cam"])
+        kp3d = simulate_scene(scene["n_animal"], scene["n_frame"], seed=1)
+        proj = project_scene(rig, kp3d)
+        raw = os.path.join(root, "videos")
+        t = time.perf_counter()
+        render_stores(raw, "synth", rig, proj, fourcc="RGBA",
+                      chunksize=PIPELINE_CHUNK)
+        wrote = time.perf_counter() - t
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(raw) for f in fs)
+        log(f"pipeline: {rig.n_cam} RGBA stores of {scene['n_frame']} frames "
+            f"of 640x480 ({size / 1e9:.3f} GB) drawn and written in "
+            f"{wrote:.3f}s")
+
+        def factory(cam_name):
+            return SyntheticPerception(rig.camera_ids.index(cam_name), proj,
+                                       noise=1.0)
+
+        cfg = PipelineConfig(data_name="synth", raw_data_dir=raw,
+                             results_dir=os.path.join(root, "results"))
+        rd, wall, _, manifest = pipeline_run(cfg, rig, factory)
+        log(f"pipeline (i): run_pipeline {wall:.3f}s: " + " ".join(
+            f"{k}={v['total_s']:.4f}s" for k, v in manifest.items()))
+        missing = [f for f in ARTIFACTS if not os.path.exists(
+            os.path.join(rd, f))] + [
+            os.path.join(c, f) for c in rig.camera_ids
+            for f in ("alldata.json", "frame_num.npy")
+            if not os.path.exists(os.path.join(rd, c, f))]
+        if missing:
+            raise AssertionError(f"pipeline: missing artifacts {missing}")
+        n_trk, owners, n, skipped = check_pipeline_tracklets(rd, rig, proj)
+        log(f"pipeline (i): {n_trk} tracklets, each one animal's, covering "
+            f"animals {sorted(owners)}; {n} (frame, camera) entries, "
+            f"{skipped} skipped where two animals' centroids coincide within "
+            f"{COINCIDE_PX} px")
+        from macaque_tpu_torch.pipeline.artifacts import read_pickle
+
+        check_step4_truth(read_pickle(os.path.join(rd, "kp3d.pickle")), kp3d,
+                          "pipeline (i)")
+
+        stamps = {os.path.join(d, f): os.stat(os.path.join(d, f)).st_mtime_ns
+                  for d, _, fs in os.walk(rd) for f in fs
+                  if f != "run_manifest.json"}
+        _, wall2, text, manifest2 = pipeline_run(cfg, rig, factory)
+        skips = text.count("skip (exists)")
+        changed = [p for p, m in stamps.items() if os.stat(p).st_mtime_ns != m]
+        log(f"pipeline (ii): the second call {wall2:.3f}s, {skips} stages "
+            f"skipped of {rig.n_cam + 3}, {len(changed)} of {len(stamps)} "
+            "artifacts rewritten")
+        if skips != rig.n_cam + 3 or changed:
+            raise AssertionError("pipeline: the second call redid work")
+
+        check_overlay_points(rd, rig)
+
+        store = ImgStoreReader(os.path.join(raw, f"synth.{rig.camera_ids[0]}"))
+        drawn = draw_frames(proj, 0)
+        same = all(np.array_equal(store.get_image(frame_index=i)[0], drawn[i])
+                   for i in range(len(drawn)))
+        store.close()
+        log(f"pipeline (iv): the RGBA reader gives the {len(drawn)} frames "
+            f"drawn for camera {rig.camera_ids[0]}: {same}")
+        if not same:
+            raise AssertionError("pipeline: RGBA store frames differ")
+
+        launches = check_full_width_store(root, perception)
+    log(f"pipeline: phase {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 def phase_profile(perception, store, T):
     """One 16-frame chunk of process_camera under torch.profiler: device
     time by kernel, and device busy time against the wall clock."""
@@ -1821,7 +2070,8 @@ def phase_profile(perception, store, T):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="device,build,kernels,main,step2,step3,step4")
+                    default="device,build,kernels,main,step2,step3,step4,"
+                            "pipeline")
     phases = ap.parse_args(argv).phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1833,8 +2083,8 @@ def main(argv=None) -> int:
     name, count = phase_device()
     if "build" in phases:
         phase_build()
-    entries, models = [], None
-    if "kernels" in phases or "main" in phases:
+    entries, models, perception = [], None, None
+    if {"kernels", "main", "pipeline"} & set(phases):
         models = build_models(torch.device("cuda"), torch.bfloat16)
     if "kernels" in phases:
         gen = torch.Generator(device="cuda")
@@ -1844,10 +2094,8 @@ def main(argv=None) -> int:
                    check_window_attention(gen), check_unpacked_attention(gen),
                    check_swin_block(gen, models[0].backbone)]
         torch.cuda.empty_cache()
-    launches = {}
+    runs = {}
     if "main" in phases:
-        from macaque_tpu_torch import kernels
-
         runs, perception, store, T = phase_main(*models)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(1)
@@ -1855,12 +2103,6 @@ def main(argv=None) -> int:
                                                 store.frames[:CHUNK])
         runs["attention"] = phase_attention_path(gen)
         runs["split_int8"] = phase_split_path(gen)
-        # each kernel's launches on the paths, each run counted alone
-        launches = {k: sum(r[k] for r in runs.values()) for k in kernels.LAUNCHES}
-        log(f"launches on the paths: {launches}")
-        for k, n in launches.items():
-            if n <= 0:
-                raise AssertionError(f"no path launched kernel {k}")
         if "profile" in phases:
             phase_profile(perception, store, T)
     steps = [p for p in ("step2", "step3", "step4") if p in phases]
@@ -1883,6 +2125,22 @@ def main(argv=None) -> int:
         log(f"steps 2-{steps[-1][-1]}: run_step* walls "
             f"{' + '.join(f'{w:.1f}' for w in walls)} = {sum(walls):.1f}s; "
             f"with the scene and the checks {time.perf_counter() - t:.1f}s")
+    if "pipeline" in phases:
+        from macaque_tpu_torch.pipeline.perception import TorchPerception
+
+        perception = perception or TorchPerception(
+            *models[:3], max_det=8, device=torch.device("cuda"))
+        runs["pipeline_store"] = phase_pipeline(perception)
+    launches = {}
+    if "main" in phases:
+        from macaque_tpu_torch import kernels
+
+        # each kernel's launches on the paths, each run counted alone
+        launches = {k: sum(r[k] for r in runs.values()) for k in kernels.LAUNCHES}
+        log(f"launches on the paths: {launches}")
+        for k, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"no path launched kernel {k}")
     for e in entries:
         e["launches"] = launches.get(e["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

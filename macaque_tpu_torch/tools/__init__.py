@@ -1,1 +1,2 @@
-"""Tools of the port: the synthetic scene generator."""
+"""Tools of the port: the synthetic scene generator, the overlay render
+and the 3D tracking validation."""

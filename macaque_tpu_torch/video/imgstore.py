@@ -1,12 +1,19 @@
 """Minimal imgstore-format video store reader/writer.
 
-Compatible with the 'loopbio imgstore' directory layout the reference
-records with (videos/example.<cam>/metadata.yaml: VideoImgStoreFFMPEG,
-chunked mp4/avi files + per-chunk .npz index with ``frame_number`` and
-``frame_time``; see reference videos/example.22972495/metadata.yaml and
-notebooks/video/). Only the subset the pipeline needs is implemented:
-sequential and random-access reads plus global frame metadata. ``yaml`` and
-``cv2`` are imported only by the functions that read or write a store.
+Port of ``macaque_tpu/video/imgstore.py``. Compatible with the 'loopbio
+imgstore' directory layout the reference records with
+(videos/example.<cam>/metadata.yaml: VideoImgStoreFFMPEG, chunked mp4/avi
+files + per-chunk .npz index with ``frame_number`` and ``frame_time``; see
+reference videos/example.22972495/metadata.yaml and notebooks/video/).
+Only the subset the pipeline needs is implemented: sequential and
+random-access reads plus global frame metadata.
+
+``metadata.yaml`` is read and written by the port's own
+``utils/yamlmeta.py``, never PyYAML. Chunks of format ``avi/RGBA``
+(uncompressed RGBA frames) are read and written in NumPy
+(``video/avi.py``); every other format goes through ``cv2``, imported by
+the functions that decode or encode it. So a store of RGBA chunks reads
+and writes where neither cv2 nor PyYAML is installed.
 """
 
 from __future__ import annotations
@@ -17,6 +24,11 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from macaque_tpu_torch.utils import yamlmeta
+from macaque_tpu_torch.video.avi import RgbaAviReader, write_rgba_avi
+
+RGBA = "RGBA"      # the fourcc whose .avi chunks are read and written in NumPy
+
 
 class ImgStoreReader:
     """Reader over a store directory containing metadata.yaml and chunk
@@ -26,10 +38,8 @@ class ImgStoreReader:
         if path.endswith("metadata.yaml"):
             path = os.path.dirname(path)
         self.filename = path
-        import yaml
-
         with open(os.path.join(path, "metadata.yaml")) as f:
-            meta = yaml.safe_load(f)
+            meta = yamlmeta.load(f.read())
         self.metadata = meta.get("__store", meta)
 
         self._chunks = sorted(
@@ -58,6 +68,8 @@ class ImgStoreReader:
                 ext = cand
                 break
         self._ext = ext
+        fourcc = str(self.metadata.get("format", "")).rpartition("/")[2]
+        self._numpy = fourcc == RGBA and ext == ".avi"
         self._cap = None
         self._cap_chunk = -1
         self._cap_pos = -1
@@ -74,18 +86,30 @@ class ImgStoreReader:
 
     # --------------------------------------------------------------- read
 
-    def _read_row(self, row: int) -> np.ndarray:
-        import cv2
+    def _open(self, ci: int, video: str):
+        if self._cap is not None:
+            self._cap.release()
+        if self._numpy:
+            self._cap = RgbaAviReader(video)
+        else:
+            import cv2
 
+            self._cap = cv2.VideoCapture(video)
+        self._cap_chunk = ci
+        self._cap_pos = 0
+
+    def _read_row(self, row: int) -> np.ndarray:
         ci = int(self._chunk_of[row])
         pos = int(self._idx_in_chunk[row])
         video = self._chunks[ci].replace(".npz", self._ext or ".mp4")
         if self._cap is None or self._cap_chunk != ci:
-            if self._cap is not None:
-                self._cap.release()
-            self._cap = cv2.VideoCapture(video)
-            self._cap_chunk = ci
-            self._cap_pos = 0
+            self._open(ci, video)
+        if self._numpy:
+            if pos >= len(self._cap):
+                raise IOError(f"failed to read frame {pos} of {video}")
+            return self._cap.read(pos)
+        import cv2
+
         if pos != self._cap_pos:
             self._cap.set(cv2.CAP_PROP_POS_FRAMES, pos)
             self._cap_pos = pos
@@ -147,12 +171,15 @@ def write_imgstore(
     ext: Optional[str] = None,
 ) -> str:
     """Write frames (N, H, W, 3) BGR uint8 as a single/multi-chunk
-    imgstore (test fixture + demo-data generator)."""
-    import cv2
-    import yaml
+    imgstore (test fixture + demo-data generator).
 
+    ``fourcc="RGBA"`` writes uncompressed ``.avi`` chunks in NumPy (no
+    cv2), and refuses a chunk past 1 GiB; the JAX package's rule would
+    give it ``.mp4``. Every other fourcc is encoded by cv2."""
     if ext is None:
-        ext = ".avi" if fourcc in ("FFV1", "MJPG") else ".mp4"
+        ext = ".avi" if fourcc in ("FFV1", "MJPG", RGBA) else ".mp4"
+    if fourcc == RGBA and ext != ".avi":
+        raise ValueError("RGBA chunks are written as .avi only")
     os.makedirs(path, exist_ok=True)
     N, H, W, _ = frames.shape
     if frame_numbers is None:
@@ -178,17 +205,22 @@ def write_imgstore(
         }
     }
     with open(os.path.join(path, "metadata.yaml"), "w") as f:
-        yaml.safe_dump(meta, f)
+        f.write(yamlmeta.dump(meta))
 
     for ci in range(0, N, chunksize):
         chunk = frames[ci : ci + chunksize]
         base = os.path.join(path, f"{ci // chunksize:06d}")
-        vw = cv2.VideoWriter(
-            base + ext, cv2.VideoWriter_fourcc(*fourcc), fps, (W, H)
-        )
-        for fr in chunk:
-            vw.write(fr)
-        vw.release()
+        if fourcc == RGBA:
+            write_rgba_avi(base + ext, chunk, fps)
+        else:
+            import cv2
+
+            vw = cv2.VideoWriter(
+                base + ext, cv2.VideoWriter_fourcc(*fourcc), fps, (W, H)
+            )
+            for fr in chunk:
+                vw.write(fr)
+            vw.release()
         np.savez(
             base + ".npz",
             frame_number=frame_numbers[ci : ci + chunksize],

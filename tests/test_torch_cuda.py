@@ -823,3 +823,82 @@ def test_steps_3_and_4_run_on_the_card_by_default(card, tmp_path):
     assert fa.dtype == np.float32
     np.testing.assert_array_equal(fa, fb)
     np.testing.assert_array_equal(ra["kp3d"], rb["kp3d"])
+
+
+# ---------------------------------------------------------- the pipeline
+# run_pipeline end to end, the RGBA imgstore reader and the overlay's
+# reprojection on the card's machine, which has neither cv2 nor PyYAML.
+
+
+def _pipeline_scene(tmp_path, n_frame=48):
+    from macaque_tpu_torch.tools import synthetic as s
+
+    rig = s.make_test_rig(4)
+    truth = s.simulate_scene(2, n_frame, seed=1)
+    proj = s.project_scene(rig, truth)
+    s.render_stores(str(tmp_path / "videos"), "synth", rig, proj,
+                    fourcc="RGBA", chunksize=20)
+    return rig, truth, proj
+
+
+def test_run_pipeline_runs_on_the_card_by_default(card, tmp_path):
+    """With no device, steps 2-4 compute on the card (its CUDA memory peak
+    grows) in float32, from RGBA stores read without cv2, and each animal
+    comes out within 30 mm."""
+    from macaque_tpu_torch.core.config import PipelineConfig
+    from macaque_tpu_torch.pipeline.artifacts import read_pickle
+    from macaque_tpu_torch.pipeline.runner import run_pipeline
+    from macaque_tpu_torch.tools.synthetic import SyntheticPerception
+
+    rig, truth, proj = _pipeline_scene(tmp_path)
+    cfg = PipelineConfig(data_name="synth", results_dir=str(tmp_path / "r"),
+                         raw_data_dir=str(tmp_path / "videos"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.max_memory_allocated()
+    rd = run_pipeline(cfg, rig, lambda c: SyntheticPerception(
+        rig.camera_ids.index(c), proj), render=False)
+    assert torch.cuda.max_memory_allocated() > base
+    out = read_pickle(f"{rd}/kp3d.pickle")
+    assert read_pickle(f"{rd}/kp2d_f.pickle").dtype == np.float32
+    T = out["kp3d"].shape[1]
+    for a in range(2):
+        e = np.linalg.norm(out["kp3d"][a] - truth[a, :T], axis=-1)
+        assert np.nanmedian(e) < 30.0
+
+
+def test_rgba_reader_gives_the_drawn_frames_on_the_cards_machine(card,
+                                                                tmp_path):
+    from macaque_tpu_torch.tools.synthetic import draw_frames
+    from macaque_tpu_torch.video.imgstore import ImgStoreReader
+
+    rig, _, proj = _pipeline_scene(tmp_path, 30)
+    for c, cam in enumerate(rig.camera_ids):
+        r = ImgStoreReader(str(tmp_path / "videos" / f"synth.{cam}"))
+        drawn = draw_frames(proj, c)
+        for t in list(range(len(drawn))) + [29, 0, 21, 19]:
+            img, (fn, _) = r.get_image(frame_index=t)
+            assert fn == t
+            np.testing.assert_array_equal(img, drawn[t])
+        r.close()
+
+
+def test_overlay_points_on_the_card_match_the_cpu(card):
+    from macaque_tpu_torch.tools.synthetic import make_test_rig, simulate_scene
+    from macaque_tpu_torch.tools.visualize import overlay_points
+
+    rig = make_test_rig(8)
+    kp3d = simulate_scene(4, 60, seed=2)
+    kp3d[1, 10:20] = np.nan
+    kp3d[2, 5, 3] = np.nan
+    score = np.random.default_rng(0).uniform(0, 1, kp3d.shape[:3])
+    data = {"kp3d": kp3d, "kp3d_score": np.where(score < 0.2, 0.0, score)}
+    for c in range(rig.n_cam):
+        want, mw = overlay_points(data, rig, c, device="cpu")
+        got, mg = overlay_points(data, rig, c, device="cuda")
+        default, md = overlay_points(data, rig, c)
+        np.testing.assert_array_equal(mg, mw)
+        np.testing.assert_array_equal(md, mw)
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(default, got)

@@ -97,3 +97,54 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
                               capture_output=True, text=True, timeout=300)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def test_pipeline_runs_without_cv2_or_yaml(tmp_path):
+    """With jax, cv2, yaml, h5py and networkx blocked, as on the card's
+    machine: RGBA stores are written and read, ``run_pipeline`` runs steps
+    1-4 on them (render off), ``overlay_points`` projects, the demo's and
+    the CLI's parsers build, and only the render's drawing asks for cv2."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'cv2', 'yaml', 'h5py', "
+        "'networkx'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from macaque_tpu_torch import demo\n"
+        "from macaque_tpu_torch import __main__ as cli\n"
+        "from macaque_tpu_torch.core.config import PipelineConfig\n"
+        "from macaque_tpu_torch.pipeline.artifacts import read_pickle\n"
+        "from macaque_tpu_torch.pipeline.runner import run_pipeline\n"
+        "from macaque_tpu_torch.tools import synthetic as s\n"
+        "from macaque_tpu_torch.tools.visualize import (overlay_points, "
+        "render_overlay)\n"
+        f"root = {str(tmp_path)!r}\n"
+        "rig = s.make_test_rig(4)\n"
+        "truth = s.simulate_scene(2, 30, seed=1)\n"
+        "proj = s.project_scene(rig, truth)\n"
+        "s.render_stores(root + '/videos', 'synth', rig, proj, "
+        "fourcc='RGBA', chunksize=16)\n"
+        "cfg = PipelineConfig(data_name='synth', raw_data_dir=root + "
+        "'/videos', results_dir=root + '/results')\n"
+        "rd = run_pipeline(cfg, rig, lambda c: s.SyntheticPerception("
+        "rig.camera_ids.index(c), proj), render=False, device='cpu')\n"
+        "p, d = overlay_points(read_pickle(rd + '/kp3d.pickle'), rig, 0, "
+        "device='cpu')\n"
+        "assert np.isfinite(p).any() and d.any()\n"
+        "try:\n"
+        "    render_overlay('synth', 0, rd, root + '/videos', rig, "
+        "device='cpu')\n"
+        "    raise AssertionError('rendered without cv2')\n"
+        "except ImportError:\n"
+        "    pass\n"
+        "cli.parser().parse_args(['pipeline'])\n"
+        "demo.parser().parse_args(['--synthetic', '--device', 'cpu'])\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in "
+        "('macaque_tpu', 'jax', 'cv2', 'yaml') and sys.modules[m] is not "
+        "None]\n"
+        "print('pipeline ran', p.shape)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "pipeline ran" in proc.stdout
