@@ -61,14 +61,29 @@ Phases, one line each with elapsed seconds:
                card against CPU, the RGBA reader's frames; then 32 frames
                of 2048x1536 from an RGBA store through ``run_step1`` and
                the parity networks (K1 and K2 counted around the call),
-               rows equal to ``process_camera`` on the same frames.
-Steps 2-4 run no hand-written kernel (the JAX package runs them as plain
-XLA); a step phase runs the step phases before it, on one scene.
+               rows equal to ``process_camera`` on the same frames;
+  9. tracker - the on-device tracker (``tracking/device_tracker.py``):
+               ``track_chunk_device`` on the card (float32) against the CPU
+               (float64) over 10 chunks of 32 frames of an 8-animal scene's
+               oracle detections, then ``run_step1`` on the pipeline
+               scene's stores with the device tracker and with the host
+               tracker: seconds per chunk, the assignment's host reads,
+               every track one animal's;
+ 10. train   - the trainers (``nn/train.py``, ``filters/autoencoder.py``)
+               at full width: ViTPose-huge on 64 crops, ResNet-152 on 64
+               crops, Swin-S Mask R-CNN on 2 images of 608x800, the
+               autoencoder on 4,800 frames; bf16 compute with float32
+               parameters; seconds a step, throughput, peak memory, the
+               pose step's bound; losses fall, the first step repeats, no
+               kernel launches, a small pose step card against CPU.
+Steps 2-4, the tracker and the trainers run no hand-written kernel (the JAX
+package runs them as plain XLA); a step phase runs the step phases before
+it, on one scene.
 The second-to-last line is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``. Any failed phase raises, so the
 script exits non-zero and prints no result; so it does without a CUDA
 device. ``--phases device,build,kernels`` runs a subset (``device,step4``
-steps 2-4 alone);
+steps 2-4 alone, ``device,tracker,train`` the tracker and the trainers);
 ``--phases device,build,kernels,main,profile`` adds a torch.profiler pass
 over one chunk (device time by kernel, idle share, a chrome trace under
 chiprun_out/).
@@ -939,7 +954,8 @@ def build_models(dev, bf16):
     det = SwinMaskRCNN(DetectorConfig(swin=SwinConfig(compute_dtype=bf16),
                                       compute_dtype=bf16), device=dev)
     pose_sd = ViTPose(VitPoseConfig(), device=dev).state_dict()
-    pose = ViTPose(VitPoseConfig(compute_dtype=bf16), device=dev)
+    pose = ViTPose(VitPoseConfig(compute_dtype=bf16, use_pallas_attention=True),
+                   device=dev)
     pose.load_state_dict(pose_sd)
     idm = ResNetClassifier(ResNetConfig(compute_dtype=bf16), device=dev)
     with torch.no_grad():
@@ -1810,6 +1826,23 @@ COINCIDE_PX = 5.0        # two animals' projected centroids this close
                          # coincide in that view (check i)
 
 
+def entry_animal(rows, fnums, proj, c, f, tid):
+    """The animal whose projected joints the ``alldata.json`` box of track
+    ``tid`` in row ``f`` of camera ``c`` is centred nearest (the rule by
+    which the oracle perception chose the keypoints it gave the box), or
+    None where another animal's projected centroid lies within
+    ``COINCIDE_PX`` of that one's in that view (the oracle's choice between
+    them is arbitrary)."""
+    box = next(r[1:5] for r in rows[c][f] if r[0] == tid)
+    cen = np.nanmean(proj[c, :, int(fnums[c][f])], axis=1)       # (A, 2)
+    d = np.sum((cen - [(box[0] + box[2]) / 2, (box[1] + box[3]) / 2]) ** 2,
+               axis=1)
+    a = int(np.nanargmin(d))
+    sep = np.linalg.norm(cen - cen[a], axis=1)
+    sep[a] = np.inf
+    return None if np.nanmin(sep) < COINCIDE_PX else a
+
+
 def check_pipeline_tracklets(rd, rig, proj):
     """(i) Every tracklet of ``track.pickle`` is one animal's: each
     (frame, camera) entry's ``alldata.json`` box is centred nearest that
@@ -1824,22 +1857,10 @@ def check_pipeline_tracklets(rd, rig, proj):
     rows, fnums = zip(*(read_alldata(os.path.join(rd, c))
                         for c in rig.camera_ids))
     trk = read_pickle(os.path.join(rd, "track.pickle"))
-
-    def animal(c, f, tid):
-        """The animal the entry's box is centred nearest, or None where
-        two animals coincide in the view."""
-        box = next(r[1:5] for r in rows[c][f] if r[0] == tid)
-        cen = np.nanmean(proj[c, :, int(fnums[c][f])], axis=1)   # (A, 2)
-        d = np.sum((cen - [(box[0] + box[2]) / 2, (box[1] + box[3]) / 2]) ** 2,
-                   axis=1)
-        a = int(np.nanargmin(d))
-        sep = np.linalg.norm(cen - cen[a], axis=1)
-        sep[a] = np.inf
-        return None if np.nanmin(sep) < COINCIDE_PX else a
-
     owners, n, skipped = set(), 0, 0
     for k, t in trk.items():
-        got = [animal(c, f, int(t[f, c])) for f, c in zip(*np.nonzero(t >= 0))]
+        got = [entry_animal(rows, fnums, proj, c, f, int(t[f, c]))
+               for f, c in zip(*np.nonzero(t >= 0))]
         n += len(got)
         skipped += got.count(None)
         got = set(got) - {None}
@@ -1946,95 +1967,491 @@ def check_full_width_store(root, perception):
     return launches
 
 
-def phase_pipeline(perception, scene=PIPELINE_SCENE):
-    """``pipeline.runner.run_pipeline`` end to end on the card: the port's
-    synthetic scene (the reference rig's 8 cameras, 4 animals, 10 s at 24
-    fps) rendered as RGBA imgstores of 640x480 in 2 chunks each, steps 1-4
-    with the oracle ``SyntheticPerception``, float32, render off (the card
-    has no cv2). Checks: (i) every artifact, the manifest's four stages,
-    every tracklet one animal's, each animal's median joint error below
-    30 mm; (ii) a second call skips every stage and rewrites no artifact;
-    (iii) ``overlay_points`` card against CPU; (iv) the RGBA reader gives
-    the frames drawn; (v) a full-width camera through the real networks
-    from an RGBA store. Returns the launches of (v)."""
-    import tempfile
+def pipeline_stores(root, scene=PIPELINE_SCENE):
+    """The port's synthetic scene (the reference rig's 8 cameras, 4 animals,
+    10 s at 24 fps) rendered as RGBA imgstores of 640x480 in 2 chunks each
+    under ``root/videos``. Returns (rig, kp3d, proj, raw)."""
+    from macaque_tpu_torch.tools.synthetic import (
+        make_test_rig, project_scene, render_stores, simulate_scene)
 
+    rig = make_test_rig(scene["n_cam"])
+    kp3d = simulate_scene(scene["n_animal"], scene["n_frame"], seed=1)
+    proj = project_scene(rig, kp3d)
+    raw = os.path.join(root, "videos")
+    t = time.perf_counter()
+    render_stores(raw, "synth", rig, proj, fourcc="RGBA",
+                  chunksize=PIPELINE_CHUNK)
+    wrote = time.perf_counter() - t
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(raw) for f in fs)
+    log(f"pipeline scene: {rig.n_cam} RGBA stores of {scene['n_frame']} "
+        f"frames of 640x480 ({size / 1e9:.3f} GB) drawn and written in "
+        f"{wrote:.3f}s")
+    return rig, kp3d, proj, raw
+
+
+def phase_pipeline(perception, root, rig, kp3d, proj, raw):
+    """``pipeline.runner.run_pipeline`` end to end on the card: the stores
+    of :func:`pipeline_stores`, steps 1-4 with the oracle
+    ``SyntheticPerception``, float32, render off (the card has no cv2).
+    Checks: (i) every artifact, the manifest's four stages, every tracklet
+    one animal's, each animal's median joint error below 30 mm; (ii) a
+    second call skips every stage and rewrites no artifact; (iii)
+    ``overlay_points`` card against CPU; (iv) the RGBA reader gives the
+    frames drawn; (v) a full-width camera through the real networks from an
+    RGBA store. Returns the launches of (v)."""
     from macaque_tpu_torch.core.config import PipelineConfig
     from macaque_tpu_torch.tools.synthetic import (
-        SyntheticPerception, draw_frames, make_test_rig, project_scene,
-        render_stores, simulate_scene)
+        SyntheticPerception, draw_frames)
     from macaque_tpu_torch.video.imgstore import ImgStoreReader
 
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=REPO,
-                                     prefix=".chip_smoke_pipeline_") as root:
-        rig = make_test_rig(scene["n_cam"])
-        kp3d = simulate_scene(scene["n_animal"], scene["n_frame"], seed=1)
-        proj = project_scene(rig, kp3d)
-        raw = os.path.join(root, "videos")
+
+    def factory(cam_name):
+        return SyntheticPerception(rig.camera_ids.index(cam_name), proj,
+                                   noise=1.0)
+
+    cfg = PipelineConfig(data_name="synth", raw_data_dir=raw,
+                         results_dir=os.path.join(root, "results"))
+    rd, wall, _, manifest = pipeline_run(cfg, rig, factory)
+    log(f"pipeline (i): run_pipeline {wall:.3f}s: " + " ".join(
+        f"{k}={v['total_s']:.4f}s" for k, v in manifest.items()))
+    missing = [f for f in ARTIFACTS if not os.path.exists(
+        os.path.join(rd, f))] + [
+        os.path.join(c, f) for c in rig.camera_ids
+        for f in ("alldata.json", "frame_num.npy")
+        if not os.path.exists(os.path.join(rd, c, f))]
+    if missing:
+        raise AssertionError(f"pipeline: missing artifacts {missing}")
+    n_trk, owners, n, skipped = check_pipeline_tracklets(rd, rig, proj)
+    log(f"pipeline (i): {n_trk} tracklets, each one animal's, covering "
+        f"animals {sorted(owners)}; {n} (frame, camera) entries, "
+        f"{skipped} skipped where two animals' centroids coincide within "
+        f"{COINCIDE_PX} px")
+    from macaque_tpu_torch.pipeline.artifacts import read_pickle
+
+    check_step4_truth(read_pickle(os.path.join(rd, "kp3d.pickle")), kp3d,
+                      "pipeline (i)")
+
+    stamps = {os.path.join(d, f): os.stat(os.path.join(d, f)).st_mtime_ns
+              for d, _, fs in os.walk(rd) for f in fs
+              if f != "run_manifest.json"}
+    _, wall2, text, manifest2 = pipeline_run(cfg, rig, factory)
+    skips = text.count("skip (exists)")
+    changed = [p for p, m in stamps.items() if os.stat(p).st_mtime_ns != m]
+    log(f"pipeline (ii): the second call {wall2:.3f}s, {skips} stages "
+        f"skipped of {rig.n_cam + 3}, {len(changed)} of {len(stamps)} "
+        "artifacts rewritten")
+    if skips != rig.n_cam + 3 or changed:
+        raise AssertionError("pipeline: the second call redid work")
+
+    check_overlay_points(rd, rig)
+
+    store = ImgStoreReader(os.path.join(raw, f"synth.{rig.camera_ids[0]}"))
+    drawn = draw_frames(proj, 0)
+    same = all(np.array_equal(store.get_image(frame_index=i)[0], drawn[i])
+               for i in range(len(drawn)))
+    store.close()
+    log(f"pipeline (iv): the RGBA reader gives the {len(drawn)} frames "
+        f"drawn for camera {rig.camera_ids[0]}: {same}")
+    if not same:
+        raise AssertionError("pipeline: RGBA store frames differ")
+
+    launches = check_full_width_store(root, perception)
+    log(f"pipeline: phase {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
+TRACKER_CHUNKS, TRACKER_T = 10, 32   # check (a): 10 chunks of 32 frames
+TRACKER_ANIMALS, TRACKER_SLOTS, TRACKER_CAPACITY = 8, 8, 16
+
+
+def tracker_detections(n_animal=TRACKER_ANIMALS,
+                       n_frame=TRACKER_CHUNKS * TRACKER_T, max_det=TRACKER_SLOTS):
+    """One camera's oracle detections of an ``n_animal`` synthetic scene, as
+    step 1 hands them to the tracker: (boxes (T, D, 4), scores (T, D)) with
+    scores at or below ``score_thr`` zeroed."""
+    from macaque_tpu_torch.core.config import Step1Config
+    from macaque_tpu_torch.tools.synthetic import (
+        IMG_H, IMG_W, SyntheticPerception, encode_index, make_test_rig,
+        project_scene, simulate_scene)
+
+    # the scene holds up to 4 animals: two of them, the second moved 0.35 m
+    half = n_animal // 2
+    kp3d = np.concatenate([simulate_scene(half, n_frame, seed=3),
+                           simulate_scene(n_animal - half, n_frame, seed=4)
+                           + [250.0, 250.0, 0.0]])
+    proj = project_scene(make_test_rig(1), kp3d)
+    oracle = SyntheticPerception(0, proj, noise=1.0, max_det=max_det)
+    boxes, scores = [], []
+    for t0 in range(0, n_frame, TRACKER_T):
+        frames = np.zeros((min(TRACKER_T, n_frame - t0), IMG_H, IMG_W, 3),
+                          np.uint8)
+        for i, f in enumerate(frames):
+            encode_index(f, t0 + i)
+        b, sc = oracle.detect(frames)
+        boxes.append(b)
+        scores.append(sc)
+    boxes, scores = np.concatenate(boxes), np.concatenate(scores)
+    thr = Step1Config().score_thr
+    return boxes, np.where(scores > thr, scores, 0.0)
+
+
+def track_chunks(device, dtype, boxes, scores):
+    """``track_chunk_device`` over the chunks with the table carried:
+    (boxes (T, K, 4) float64, ids (T, K), seconds per chunk, host reads)."""
+    from macaque_tpu_torch.tracking import make_table, track_chunk_device
+
+    table = make_table(TRACKER_CAPACITY, device=device, dtype=dtype)
+    stats = {"host_reads": 0}
+    out_b, out_t, secs = [], [], []
+    for t0 in range(0, len(boxes), TRACKER_T):
         t = time.perf_counter()
-        render_stores(raw, "synth", rig, proj, fourcc="RGBA",
-                      chunksize=PIPELINE_CHUNK)
-        wrote = time.perf_counter() - t
-        size = sum(os.path.getsize(os.path.join(d, f))
-                   for d, _, fs in os.walk(raw) for f in fs)
-        log(f"pipeline: {rig.n_cam} RGBA stores of {scene['n_frame']} frames "
-            f"of 640x480 ({size / 1e9:.3f} GB) drawn and written in "
-            f"{wrote:.3f}s")
+        table, b, ids = track_chunk_device(table, boxes[t0:t0 + TRACKER_T],
+                                           scores[t0:t0 + TRACKER_T],
+                                           stats=stats)
+        out_b.append(b.cpu().double())
+        out_t.append(ids.cpu())
+        secs.append(time.perf_counter() - t)
+    return torch.cat(out_b), torch.cat(out_t), secs, stats["host_reads"]
+
+
+def check_step1_tracks(rd, rig, proj, name):
+    """Every step-1 track of every camera is one animal's (the rule of
+    check (i) of the pipeline phase, per ``alldata.json`` entry). Returns
+    (tracks, entries, entries skipped where two animals coincide)."""
+    from macaque_tpu_torch.pipeline.artifacts import read_alldata
+
+    rows, fnums = zip(*(read_alldata(os.path.join(rd, c))
+                        for c in rig.camera_ids))
+    n_trk = n = skipped = 0
+    for c in range(rig.n_cam):
+        owner = {}
+        for f, row in enumerate(rows[c]):
+            for r in row:
+                a = entry_animal(rows, fnums, proj, c, f, r[0])
+                n += 1
+                if a is None:
+                    skipped += 1
+                    continue
+                if owner.setdefault(r[0], a) != a:
+                    raise AssertionError(f"tracker ({name}): camera {c} track "
+                                         f"{r[0]} spans animals {owner[r[0]]} "
+                                         f"and {a}")
+        n_trk += len(owner)
+    return n_trk, n, skipped, fnums
+
+
+def phase_tracker(root, rig, kp3d, proj, raw):
+    """The on-device tracker (``tracking/device_tracker.py``). (a) The card
+    against the CPU: ``track_chunk_device`` on one camera's oracle
+    detections of an 8-animal scene (max_det 8, capacity 16), 10 chunks of
+    32 frames with the table carried, float32 on the card against float64
+    on the CPU: equal track ids, boxes within 1e-3 px. (b) Both trackers
+    end to end: ``run_step1`` with the oracle perception on the pipeline
+    scene's RGBA stores, with ``use_device_tracker`` (its table on the
+    card) and with the host tracker: the same frame numbers, every track
+    one animal's."""
+    import contextlib
+    import io
+    import re
+
+    from macaque_tpu_torch.pipeline.step1 import run_step1
+    from macaque_tpu_torch.tools.synthetic import SyntheticPerception
+
+    t0 = time.perf_counter()
+    boxes, scores = tracker_detections()
+    bg, ig, sg, reads_g = track_chunks("cuda", torch.float32, boxes, scores)
+    bc, ic, sc, reads_c = track_chunks("cpu", torch.float64, boxes, scores)
+    same_ids = torch.equal(ig, ic)
+    nan_same = torch.equal(torch.isnan(bg), torch.isnan(bc))
+    err = float(np.nanmax(np.abs((bg - bc).numpy()))) if nan_same else np.inf
+    n_tracks = len(set(ic[ic >= 0].tolist()))
+    log(f"tracker (a): {len(boxes)} frames, {int((scores > 0).sum())} "
+        f"detections of {TRACKER_ANIMALS} animals, {n_tracks} tracks; card "
+        f"float32 {np.median(sg):.3f} s/chunk (first {sg[0]:.3f}), CPU float64 "
+        f"{np.median(sc):.3f} s/chunk; assignment host reads "
+        f"{reads_g} ({reads_g / len(boxes):.1f} a frame); ids equal "
+        f"{same_ids}, boxes |d| {err:.3e} px")
+    if not (same_ids and nan_same and err <= 1e-3 and n_tracks > 0):
+        raise AssertionError("tracker (a): the card's tracks differ from the "
+                             "CPU's")
+
+    walls, fn = {}, {}
+    for dev_tracker in (True, False):
+        name = "device" if dev_tracker else "host"
+        out = os.path.join(root, f"tracker_{name}")
 
         def factory(cam_name):
             return SyntheticPerception(rig.camera_ids.index(cam_name), proj,
-                                       noise=1.0)
+                                       noise=1.0, device="cuda")
 
-        cfg = PipelineConfig(data_name="synth", raw_data_dir=raw,
-                             results_dir=os.path.join(root, "results"))
-        rd, wall, _, manifest = pipeline_run(cfg, rig, factory)
-        log(f"pipeline (i): run_pipeline {wall:.3f}s: " + " ".join(
-            f"{k}={v['total_s']:.4f}s" for k, v in manifest.items()))
-        missing = [f for f in ARTIFACTS if not os.path.exists(
-            os.path.join(rd, f))] + [
-            os.path.join(c, f) for c in rig.camera_ids
-            for f in ("alldata.json", "frame_num.npy")
-            if not os.path.exists(os.path.join(rd, c, f))]
-        if missing:
-            raise AssertionError(f"pipeline: missing artifacts {missing}")
-        n_trk, owners, n, skipped = check_pipeline_tracklets(rd, rig, proj)
-        log(f"pipeline (i): {n_trk} tracklets, each one animal's, covering "
-            f"animals {sorted(owners)}; {n} (frame, camera) entries, "
-            f"{skipped} skipped where two animals' centroids coincide within "
-            f"{COINCIDE_PX} px")
-        from macaque_tpu_torch.pipeline.artifacts import read_pickle
+        text = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            run_step1("synth", out, raw, factory,
+                      use_device_tracker=dev_tracker)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t
+        # each camera's summary line holds its "track" stage seconds
+        track = sum(map(float, re.findall(r"track=([0-9.]+)s",
+                                          text.getvalue())))
+        n_trk, n, skipped, fn[name] = check_step1_tracks(
+            os.path.join(out, "synth"), rig, proj, name)
+        chunks = rig.n_cam * -(-len(fn[name][0]) // 32)
+        log(f"tracker (b): run_step1 with the {name} tracker "
+            f"{walls[name]:.3f}s over {rig.n_cam} cameras x "
+            f"{len(fn[name][0])} frames, its track stage {track:.3f}s = "
+            f"{track / chunks:.4f} s a 32-frame chunk; {n_trk} tracks, each "
+            f"one animal's; {n} entries, {skipped} skipped where two animals "
+            "coincide")
+    if not all(np.array_equal(a, b) for a, b in zip(fn["device"], fn["host"])):
+        raise AssertionError("tracker (b): frame numbers differ")
+    log(f"tracker: phase {time.perf_counter() - t0:.1f}s")
 
-        check_step4_truth(read_pickle(os.path.join(rd, "kp3d.pickle")), kp3d,
-                          "pipeline (i)")
 
-        stamps = {os.path.join(d, f): os.stat(os.path.join(d, f)).st_mtime_ns
-                  for d, _, fs in os.walk(rd) for f in fs
-                  if f != "run_manifest.json"}
-        _, wall2, text, manifest2 = pipeline_run(cfg, rig, factory)
-        skips = text.count("skip (exists)")
-        changed = [p for p, m in stamps.items() if os.stat(p).st_mtime_ns != m]
-        log(f"pipeline (ii): the second call {wall2:.3f}s, {skips} stages "
-            f"skipped of {rig.n_cam + 3}, {len(changed)} of {len(stamps)} "
-            "artifacts rewritten")
-        if skips != rig.n_cam + 3 or changed:
-            raise AssertionError("pipeline: the second call redid work")
+TRAIN_FULL = {
+    "pose": dict(crops=64, steps=6),            # ViTPose-huge, 256x192
+    "id": dict(crops=64, size=224, steps=6),    # ResNet-152, id_crops' size
+    "det": dict(images=2, hw=(608, 800), gt=4, proposals=512, steps=4),
+    "ae": dict(frames=4800, joints=17, epochs=300),
+}
 
-        check_overlay_points(rd, rig)
 
-        store = ImgStoreReader(os.path.join(raw, f"synth.{rig.camera_ids[0]}"))
-        drawn = draw_frames(proj, 0)
-        same = all(np.array_equal(store.get_image(frame_index=i)[0], drawn[i])
-                   for i in range(len(drawn)))
-        store.close()
-        log(f"pipeline (iv): the RGBA reader gives the {len(drawn)} frames "
-            f"drawn for camera {rig.camera_ids[0]}: {same}")
-        if not same:
-            raise AssertionError("pipeline: RGBA store frames differ")
+def median_step(times):
+    """The median seconds of steps 2 to the end (the first one warms)."""
+    return float(np.median(times[1:]))
 
-        launches = check_full_width_store(root, perception)
-    log(f"pipeline: phase {time.perf_counter() - t0:.1f}s")
-    return launches
+
+def train_loop(name, step, state, batch, n_steps):
+    """``step`` from ``state`` twice (the first loss must repeat: the step
+    is deterministic), then ``n_steps`` steps on the one batch. Returns the
+    losses and the seconds of each step."""
+    first = [float(step(*state, *batch)[-1]) for _ in range(2)]
+    torch.cuda.synchronize()
+    if first[0] != first[1]:
+        raise AssertionError(f"train ({name}): the first step's loss "
+                             f"{first[0]!r} did not repeat: {first[1]!r}")
+    losses, secs = [], []
+    for _ in range(n_steps):
+        t = time.perf_counter()
+        *state, loss = step(*state, *batch)
+        losses.append(float(loss))          # one host read: the step's end
+        secs.append(time.perf_counter() - t)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"train ({name}): losses {losses}")
+    return losses, secs
+
+
+def train_pose(dev, sizes):
+    """ViTPose(-huge) in bf16 with float32 parameters, the layer-decay AdamW
+    with ``pose_lr_schedule`` (5e-4, a 5-step warmup), ``sizes["steps"]``
+    steps on one batch of random crops with UDP targets of random keypoints.
+    Returns (losses, step seconds, peak bytes, parameter count)."""
+    from macaque_tpu_torch.nn import ViTPose, VitPoseConfig
+    from macaque_tpu_torch.nn import train as tr
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.manual_seed(10)
+    cfg = VitPoseConfig(compute_dtype=torch.bfloat16)
+    model = ViTPose(cfg, device=dev)
+    params, stats = tr.train_state(model)
+    opt = tr.make_pose_optimizer(
+        params, num_layers=cfg.depth,
+        schedule=tr.pose_lr_schedule(5e-4, warmup_steps=5))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    B, (H, W) = sizes["crops"], cfg.img_size
+    crops = torch.randn((B, H, W, 3), generator=gen, device=dev)
+    kps = torch.rand((B, 17, 2), generator=gen, device=dev) \
+        * torch.tensor([W - 1.0, H - 1.0], device=dev)
+    visible = (torch.rand((B, 17), generator=gen, device=dev) > 0.1).float()
+    losses, secs = train_loop("pose", tr.make_pose_train_step(model, opt),
+                              [params, stats, opt.init(params)],
+                              (crops, kps, visible), sizes["steps"])
+    return losses, secs, torch.cuda.max_memory_allocated(), \
+        sum(p.numel() for p in params.values())
+
+
+def train_id(dev, sizes):
+    """ResNet(-152) in bf16 with float32 parameters, AdamW (1e-4, wd 1e-4),
+    the label-smoothing loss with the reference class weights, on random
+    224x224 crops with random labels."""
+    from macaque_tpu_torch.nn import ResNetClassifier, ResNetConfig
+    from macaque_tpu_torch.nn import optim
+    from macaque_tpu_torch.nn import train as tr
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.manual_seed(12)
+    model = ResNetClassifier(ResNetConfig(compute_dtype=torch.bfloat16),
+                             device=dev)
+    params, stats = tr.train_state(model)
+    opt = optim.adamw(1e-4)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    B, S = sizes["crops"], sizes["size"]
+    images = torch.randn((B, S, S, 3), generator=gen, device=dev)
+    labels = torch.randint(0, 6, (B,), generator=gen, device=dev)
+    losses, secs = train_loop(
+        "id", tr.make_id_train_step(model, opt, tr.ID_CLASS_WEIGHTS),
+        [params, stats, opt.init(params)], (images, labels), sizes["steps"])
+    return losses, secs, torch.cuda.max_memory_allocated()
+
+
+def train_detection(dev, sizes):
+    """Swin-S Mask R-CNN in bf16 with float32 parameters (the plain Swin
+    attention, the plain RoIAlign), ``make_detection_optimizer``, on
+    ``images`` random images with ``gt`` bright boxes each, one JAX key for
+    every step (the same samples while the proposals stay)."""
+    from macaque_tpu_torch.nn import DetectorConfig, SwinMaskRCNN
+    from macaque_tpu_torch.nn import train as tr
+    from macaque_tpu_torch.nn.swin import SwinConfig
+    from macaque_tpu_torch.utils.threefry import prng_key
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.manual_seed(14)
+    bf16 = torch.bfloat16
+    model = SwinMaskRCNN(DetectorConfig(swin=SwinConfig(compute_dtype=bf16),
+                                        compute_dtype=bf16), device=dev)
+    params, _ = tr.train_state(model)
+    opt = tr.make_detection_optimizer(params)
+    rng = np.random.default_rng(15)
+    B, (H, W), G = sizes["images"], sizes["hw"], sizes["gt"]
+    images = rng.normal(0, 0.3, (B, H, W, 3)).astype(np.float32)
+    gt = np.zeros((B, G, 4), np.float32)
+    for b in range(B):
+        for g in range(G):
+            w, h = rng.uniform(0.1, 0.3) * W, rng.uniform(0.1, 0.3) * H
+            x, y = rng.uniform(0, W - w), rng.uniform(0, H - h)
+            gt[b, g] = [x, y, x + w, y + h]
+            images[b, int(y):int(y + h), int(x):int(x + w)] += 1.5
+    step = tr.make_detection_train_step(model, opt,
+                                        num_proposals=sizes["proposals"])
+
+    def loss_step(params, opt_state, *batch):
+        params, opt_state, metrics = step(params, opt_state, *batch)
+        return params, opt_state, metrics["loss"]
+
+    batch = (prng_key(16), torch.from_numpy(images).to(dev),
+             torch.from_numpy(gt).to(dev),
+             torch.ones((B, G), dtype=torch.bool, device=dev))
+    losses, secs = train_loop("detection", loss_step,
+                              [params, opt.init(params)], batch,
+                              sizes["steps"])
+    return losses, secs, torch.cuda.max_memory_allocated()
+
+
+def train_ae(dev, sizes):
+    """The autoencoder score filter on random scores with correlated
+    occlusions; the loss before and after training."""
+    from macaque_tpu_torch.filters.autoencoder import (
+        _forward, train_autoencoder)
+
+    rng = np.random.default_rng(17)
+    n, J = sizes["frames"], sizes["joints"]
+    scores = rng.uniform(0.55, 1.0, (n, J))
+    hidden = rng.uniform(0, 1, n) < 0.3
+    scores[hidden, 1::2] = rng.uniform(0, 0.4, (hidden.sum(), J // 2))
+    x = torch.from_numpy((scores > 0.5).astype(np.float32)).to(dev)
+
+    def bce(p):
+        pred = _forward(p, x)
+        return float(-torch.mean(x * torch.log(pred + 1e-7)
+                                 + (1 - x) * torch.log(1 - pred + 1e-7)))
+
+    before = bce(train_autoencoder(scores, epochs=0, device=dev))
+    t = time.perf_counter()
+    params = train_autoencoder(scores, epochs=sizes["epochs"], device=dev)
+    after = bce(params)
+    secs = time.perf_counter() - t
+    if not (np.isfinite(after) and after < before):
+        raise AssertionError(f"train (autoencoder): loss {before} -> {after}")
+    return before, after, secs
+
+
+def check_small_pose_step():
+    """A small-width float32 pose step on the card against the CPU's: loss
+    and parameters within 1e-4 relative (TF32 is off)."""
+    from macaque_tpu_torch.nn import ViTPose, VitPoseConfig
+    from macaque_tpu_torch.nn import train as tr
+
+    cfg = VitPoseConfig(img_size=(64, 48), embed_dim=64, depth=2, num_heads=4,
+                        deconv_channels=(32, 32))
+    torch.manual_seed(18)
+    sd = ViTPose(cfg, device="cpu").state_dict()
+    rng = np.random.default_rng(19)
+    batch = (rng.normal(0, 1, (4, 64, 48, 3)).astype(np.float32),
+             rng.uniform(8, 40, (4, 17, 2)).astype(np.float32),
+             np.ones((4, 17), np.float32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = ViTPose(cfg, device=dev)
+        model.load_state_dict(sd)
+        params, stats = tr.train_state(model)
+        opt = tr.make_pose_optimizer(params, num_layers=2)
+        params, stats, _, loss = tr.make_pose_train_step(model, opt)(
+            params, stats, opt.init(params),
+            *(torch.from_numpy(a).to(dev) for a in batch))
+        out[dev] = float(loss), {k: v.cpu() for k, v in {**params, **stats}.items()}
+    (lc, pc), (lg, pg) = out["cpu"], out["cuda"]
+    rel = max(float((pg[k] - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+              for k, v in pc.items())
+    log(f"train: small-width float32 pose step card against CPU: loss "
+        f"{lg:.7f} / {lc:.7f}, parameters and statistics within {rel:.2e} of "
+        "each tensor's largest value")
+    if not (abs(lg - lc) <= 1e-4 * abs(lc) and rel <= 1e-4):
+        raise AssertionError("train: the card's pose step differs from the CPU's")
+
+
+def phase_train(sizes=TRAIN_FULL):
+    """The trainers at full width on the card: ViTPose-huge (64 crops), the
+    ResNet-152 ID classifier (64 crops), the Swin-S Mask R-CNN (2 images of
+    608x800) and the autoencoder filter (4,800 frames). Checks: every loss
+    finite, each model's last loss below its first, the first step's loss
+    repeated from the same state, ``kernels.LAUNCHES`` unchanged (no
+    hand-written kernel on a training path), and a small-width pose step
+    card against CPU."""
+    from macaque_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    before = dict(kernels.LAUNCHES)
+    gib = 2.0 ** 30
+    losses, secs, peak, n_params = train_pose(dev, sizes["pose"])
+    s = median_step(secs)
+    B = sizes["pose"]["crops"]
+    flop = 6 * n_params * B * 192 + 3 * 4 * 32 * B * 16 * 192 ** 2 * 80
+    log(f"train (pose): ViTPose-huge {n_params / 1e9:.3f} G parameters, {B} "
+        f"crops of 256x192, bf16 compute, float32 parameters: losses "
+        f"{[round(x, 6) for x in losses]}; {s:.4f} s/step (median of steps "
+        f"2-{len(secs)}), {B / s:.1f} crops/s, peak {peak / gib:.2f} GiB; "
+        f"bound {flop / 1e12:.1f} TFLOP at {BF16_FLOP_PER_S / 1e12:.0f} "
+        f"TFLOP/s = {flop / BF16_FLOP_PER_S:.4f} s/step")
+    torch.cuda.empty_cache()
+    losses, secs, peak = train_id(dev, sizes["id"])
+    s = median_step(secs)
+    B = sizes["id"]["crops"]
+    log(f"train (id): ResNet-152, {B} crops of {sizes['id']['size']}^2: "
+        f"losses {[round(x, 6) for x in losses]}; {s:.4f} s/step, "
+        f"{B / s:.1f} crops/s, peak {peak / gib:.2f} GiB")
+    torch.cuda.empty_cache()
+    losses, secs, peak = train_detection(dev, sizes["det"])
+    s = median_step(secs)
+    B = sizes["det"]["images"]
+    log(f"train (detection): Swin-S Mask R-CNN, {B} images of "
+        f"{sizes['det']['hw']} with {sizes['det']['gt']} gt boxes, "
+        f"{sizes['det']['proposals']} proposals: losses "
+        f"{[round(x, 6) for x in losses]}; {s:.4f} s/step, {B / s:.2f} "
+        f"images/s, peak {peak / gib:.2f} GiB")
+    torch.cuda.empty_cache()
+    b, a, secs = train_ae(dev, sizes["ae"])
+    log(f"train (autoencoder): {sizes['ae']['frames']} frames x "
+        f"{sizes['ae']['joints']} scores, {sizes['ae']['epochs']} epochs in "
+        f"{secs:.3f}s: loss {b:.6f} -> {a:.6f}")
+    check_small_pose_step()
+    if kernels.LAUNCHES != before:
+        raise AssertionError(f"train: kernels launched while training: "
+                             f"{before} -> {kernels.LAUNCHES}")
+    log(f"train: kernels.LAUNCHES unchanged across the phase; phase "
+        f"{time.perf_counter() - t0:.1f}s")
 
 
 def phase_profile(perception, store, T):
@@ -2071,7 +2488,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="device,build,kernels,main,step2,step3,step4,"
-                            "pipeline")
+                            "pipeline,tracker,train")
     phases = ap.parse_args(argv).phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2125,12 +2542,28 @@ def main(argv=None) -> int:
         log(f"steps 2-{steps[-1][-1]}: run_step* walls "
             f"{' + '.join(f'{w:.1f}' for w in walls)} = {sum(walls):.1f}s; "
             f"with the scene and the checks {time.perf_counter() - t:.1f}s")
-    if "pipeline" in phases:
-        from macaque_tpu_torch.pipeline.perception import TorchPerception
+    if {"pipeline", "tracker"} & set(phases):
+        import tempfile
 
-        perception = perception or TorchPerception(
-            *models[:3], max_det=8, device=torch.device("cuda"))
-        runs["pipeline_store"] = phase_pipeline(perception)
+        # the scene's stores, in a temporary directory of the checkout
+        # (nothing is written outside it), removed at the end
+        with tempfile.TemporaryDirectory(
+                dir=REPO, prefix=".chip_smoke_pipeline_") as root:
+            scene = pipeline_stores(root)
+            if "pipeline" in phases:
+                from macaque_tpu_torch.pipeline.perception import (
+                    TorchPerception)
+
+                perception = perception or TorchPerception(
+                    *models[:3], max_det=8, device=torch.device("cuda"))
+                runs["pipeline_store"] = phase_pipeline(perception, root,
+                                                        *scene)
+            if "tracker" in phases:
+                phase_tracker(root, *scene)
+    if "train" in phases:
+        del models, perception
+        torch.cuda.empty_cache()
+        phase_train()
     launches = {}
     if "main" in phases:
         from macaque_tpu_torch import kernels

@@ -1,6 +1,6 @@
 """Temporal filters on tensors: NaN interpolation, median filter, EMA,
-Viterbi (port of ``macaque_tpu/filters``; the score autoencoder waits for
-the training port, ROADMAP.md §1 item 7)."""
+Viterbi, and the keypoint-score autoencoder (port of
+``macaque_tpu/filters``)."""
 
 from macaque_tpu_torch.filters.smoothing import (
     interpolate_nan,
@@ -9,6 +9,9 @@ from macaque_tpu_torch.filters.smoothing import (
 )
 from macaque_tpu_torch.filters.viterbi import (
     viterbi_filter, viterbi_filter_joints)
+from macaque_tpu_torch.filters.autoencoder import (
+    AEParams, filter_scores_autoencoder, load_autoencoder, save_autoencoder,
+    train_autoencoder)
 
 __all__ = [
     "interpolate_nan",
@@ -16,4 +19,9 @@ __all__ = [
     "ema_smooth",
     "viterbi_filter",
     "viterbi_filter_joints",
+    "AEParams",
+    "train_autoencoder",
+    "save_autoencoder",
+    "load_autoencoder",
+    "filter_scores_autoencoder",
 ]

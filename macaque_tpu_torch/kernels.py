@@ -169,6 +169,20 @@ def ptxas_stats(kernel: str, log: str | None = None) -> dict | None:
     return stats
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise before a launch that autograd would lose: a kernel's output is
+    a fresh tensor with no ``grad_fn``, so every gradient upstream of it
+    would silently be zero. Serving runs under ``no_grad`` or with frozen
+    weights; training takes the plain, differentiable paths."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward and an input requires grad; "
+            "run under torch.no_grad() or take the plain version")
+
+
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")

@@ -56,6 +56,7 @@ def packed_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
         return packed_attention_reference(qkv, heads)
     if qkv.device.type != "cuda":
         raise ValueError(f"packed_attention: unsupported device {qkv.device}")
+    kernels.refuse_grad("packed_attention", qkv)
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * heads):
         raise ValueError(f"packed_attention: bad qkv shape {tuple(qkv.shape)}"
                          f" for {heads} heads")
@@ -116,6 +117,7 @@ def window_attention(qkv, bias, mask, heads: int,
         return window_attention_reference(qkv, bias, mask, heads, blocked)
     if qkv.device.type != "cuda":
         raise ValueError(f"window_attention: unsupported device {qkv.device}")
+    kernels.refuse_grad("window_attention", qkv, bias, mask)
     if qkv.dim() != 3 or qkv.shape[-1] % (3 * heads):
         raise ValueError(f"window_attention: bad qkv shape {tuple(qkv.shape)}"
                          f" for {heads} heads")
@@ -176,6 +178,7 @@ def _unpacked_attention(q, k, v, name: str) -> torch.Tensor:
         return attention_reference(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
+    kernels.refuse_grad(name, q, k, v)
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{name}: q, k, v must share one (B, N, H, D) shape, "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "

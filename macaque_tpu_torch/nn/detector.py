@@ -132,7 +132,10 @@ class RoIHead(nn.Module):
 
 class SwinMaskRCNN(nn.Module):
     """The detector, built in inference mode; :func:`detect_frames` runs a
-    batch of padded normalized inputs through it."""
+    batch of padded normalized inputs through it. After
+    ``nn.layers.make_trainable`` its ``trunk`` and ``roi_head.bbox_head``
+    carry gradients (``nn/train.py`` feeds the box head through the plain
+    ``roi_align_windowed_reference``: the kernel has no backward)."""
 
     def __init__(self, cfg: DetectorConfig = DetectorConfig(), device=None):
         super().__init__()

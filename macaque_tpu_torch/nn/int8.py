@@ -95,6 +95,7 @@ def quant_int8_matmul_reference(x, weight_q, wscale, bias=None, out_bias=None):
 def _check_cuda(name, x, K):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
+    kernels.refuse_grad(name, x)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name}: kernel takes bfloat16, got {x.dtype}")
     if K % 32:

@@ -90,7 +90,8 @@ class ClsHead(nn.Module):
 
 class ResNetClassifier(nn.Module):
     """(B, 224, 224, 3) normalized -> logits (B, num_classes) float32.
-    Built in inference mode."""
+    Built in inference mode; ``nn.layers.make_trainable`` puts it in
+    training mode (BatchNorm on batch statistics)."""
 
     def __init__(self, cfg: ResNetConfig = ResNetConfig(), device=None):
         super().__init__()

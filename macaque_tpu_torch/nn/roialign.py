@@ -96,6 +96,7 @@ def roi_align_windows(canvas, plane, ys, xs, ky, kx) -> torch.Tensor:
         return roi_align_windows_reference(canvas, plane, ys, xs, ky, kx)
     if canvas.device.type != "cuda":
         raise ValueError(f"roi_align_windows: unsupported device {canvas.device}")
+    kernels.refuse_grad("roi_align_windows", canvas, ky, kx)
     P, H0, W0, C = canvas.shape
     R, out_size, w = ky.shape
     if canvas.dtype != torch.bfloat16:

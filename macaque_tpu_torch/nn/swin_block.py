@@ -193,6 +193,8 @@ def fused_swin_block(x_win, tok_valid, params, bias_hnm, mask, heads: int,
                                           mask, heads, eps)
     if x_win.device.type != "cuda":
         raise ValueError(f"fused_swin_block: unsupported device {x_win.device}")
+    kernels.refuse_grad("fused_swin_block", x_win, bias_hnm, mask,
+                        *params.values())
     _check(x_win, tok_valid, params, bias_hnm, mask, heads)
     nW, _, C = x_win.shape
     out = torch.empty_like(x_win)

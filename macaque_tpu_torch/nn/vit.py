@@ -6,9 +6,14 @@ MLP 5120, patch 16 with conv padding 2, no cls token, learned pos-embed,
 final LN) and a HeatmapHead of two 4x4 stride-2 deconvs (256 ch,
 BN+ReLU) and a 1x1 conv to 17 heatmaps at 64x48. Module names follow
 mmpose, so its ``state_dict`` keys are those of a released checkpoint.
-The attention runs ``nn/attention.py::packed_attention`` (the CUDA
-kernel on the card). ``VitPoseConfig(quantize="int8")`` builds the block
-Dense layers as ``nn/quant.py::Int8Linear`` (the int8 serving tiers).
+With ``VitPoseConfig(use_pallas_attention=True)`` (what the serving
+builders set on the card) the attention runs
+``nn/attention.py::packed_attention`` (the CUDA kernel on the card); with
+the default ``False`` it runs the plain, differentiable
+``packed_attention_reference``, JAX's ``jax.nn.dot_product_attention``
+numerics (the path training takes). ``VitPoseConfig(quantize="int8")``
+builds the block Dense layers as ``nn/quant.py::Int8Linear`` (the int8
+serving tiers).
 Inputs and outputs are channels-last, as in the JAX
 package.
 """
@@ -21,7 +26,8 @@ from typing import Any, Tuple
 import torch
 from torch import nn
 
-from macaque_tpu_torch.nn.attention import packed_attention
+from macaque_tpu_torch.nn.attention import (
+    packed_attention, packed_attention_reference)
 from macaque_tpu_torch.nn.layers import (
     BatchNorm2d, Conv2d, ConvTranspose2d, FusedLayerNorm, Linear, gelu)
 from macaque_tpu_torch.nn.quant import Int8Linear
@@ -40,6 +46,7 @@ class VitPoseConfig:
     deconv_channels: Tuple[int, ...] = (256, 256)
     ln_eps: float = 1e-6
     compute_dtype: Any = torch.float32
+    use_pallas_attention: bool = False  # the packed attention kernel (K1)
     # "int8": weight + dynamic-activation int8 on the block Dense layers
     # (nn/quant.py; load quantized weights or use quantize_vitpose_). None:
     # the float path.
@@ -69,11 +76,14 @@ class Attention(nn.Module):
     def __init__(self, cfg: VitPoseConfig, device=None):
         super().__init__()
         self.heads = cfg.num_heads
+        self.use_kernel = cfg.use_pallas_attention
         self.qkv = _dense(cfg, cfg.embed_dim, 3 * cfg.embed_dim, device)
         self.proj = _dense(cfg, cfg.embed_dim, cfg.embed_dim, device)
 
     def forward(self, x):
-        return self.proj(packed_attention(self.qkv(x), self.heads))
+        attend = packed_attention if self.use_kernel else \
+            packed_attention_reference
+        return self.proj(attend(self.qkv(x), self.heads))
 
 
 class FFN(nn.Module):
@@ -164,7 +174,8 @@ class HeatmapHead(nn.Module):
 
 class ViTPose(nn.Module):
     """Top-down 2D pose network: (B, 256, 192, 3) normalized crops ->
-    (B, 64, 48, 17) heatmaps. Built in inference mode."""
+    (B, 64, 48, 17) heatmaps. Built in inference mode;
+    ``nn.layers.make_trainable`` puts it in training mode."""
 
     def __init__(self, cfg: VitPoseConfig = VitPoseConfig(), device=None):
         super().__init__()

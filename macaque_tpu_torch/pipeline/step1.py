@@ -2,7 +2,9 @@
 
 The loop of ``macaque_tpu/pipeline/step1.py`` on the PyTorch port: frames
 are processed in chunks, one batched device call per model per chunk,
-with the tracker, EMA and assembly on the host between them.
+with the tracker, EMA and assembly on the host between them; with
+``use_device_tracker`` the chunk is tracked on the perception's device
+(``tracking/device_tracker.py``) instead of by the host tracker.
 
 Per-frame behavioral parity (thresholds, margin expansion, aspect snap,
 EMA gating, output schema) follows step1:226-362.
@@ -12,6 +14,7 @@ from __future__ import annotations
 
 import os
 import numpy as np
+import torch
 
 from macaque_tpu_torch.core.config import Step1Config
 from macaque_tpu_torch.pipeline.artifacts import write_alldata, stage_done
@@ -77,11 +80,10 @@ def process_camera(
     """Stage 1 for one camera; writes ``alldata.json`` and
     ``frame_num.npy`` into ``out_dir`` and returns the wall-clock seconds
     spent in each sub-stage (None when the outputs already exist).
-    ``use_device_tracker`` (the JAX package's on-device track table) is
-    not ported yet and raises."""
-    if use_device_tracker:
-        raise NotImplementedError(
-            "the on-device tracker is not ported yet; use the host tracker")
+    ``use_device_tracker`` tracks each chunk with the on-device track table
+    on the perception's ``device`` (the card unless it says otherwise), in
+    float64: the host tracker's precision, and the JAX package's with
+    x64 on."""
     if stage_done(os.path.join(out_dir, "alldata.json"),
                   os.path.join(out_dir, "frame_num.npy")) and not redo:
         print(f"[step1] skip (exists): {out_dir}")
@@ -105,6 +107,14 @@ def process_camera(
     per_row_result: dict[int, list] = {}
     missed_detections = 0  # runtime guardrails (reference step1:230-249)
     missed_tracks = 0
+
+    dev_table = None
+    if use_device_tracker:
+        from macaque_tpu_torch.tracking.device_tracker import make_table
+
+        dev_table = make_table(cfg.tracker.max_tracks,
+                               device=getattr(perception, "device", None),
+                               dtype=torch.float64)
 
     # Decode-ahead double buffering: one background thread decodes chunk
     # N+1 while chunk N waits on the device programs, hiding the video
@@ -161,34 +171,66 @@ def process_camera(
         valid = np.zeros((len(rows_c), D), bool)
         tids_tbl = np.full((len(rows_c), D), -1, int)
 
-        for bi in range(len(rows_c)):
-            keep = scores_all[bi] > cfg.score_thr
-            det_boxes = boxes_all[bi][keep]
-            det_scores = scores_all[bi][keep]
-            if det_boxes.shape[0] == 0:
-                # the reference skips the tracker entirely on frames
-                # with no above-threshold detections (step1:229-236),
-                # so lost-track aging counts detection frames only
-                missed_detections += 1
-                continue
-            tb, tids = tracker.update(det_boxes, det_scores)
-            if det_boxes.shape[0] > 0 and len(tids) == 0:
-                missed_tracks += 1
-            ok = []
-            for (x1, y1, x2, y2), tid in zip(tb, tids):
-                xi1, yi1, xi2, yi2 = map(int, (x1, y1, x2, y2))
-                if xi2 > xi1 and yi2 > yi1:
-                    ok.append(((xi1, yi1, xi2, yi2), tid))
+        def place(bi, ok):
+            """The frame's tracked boxes (integer xyxy, track id) into the
+            chunk's fixed tables, up to D of them."""
             ok = ok[:D]
-            if not ok:
-                continue
-            ib = np.asarray([b for b, _ in ok], np.float32)
-            eb = expand_boxes(np.asarray([b for b, _ in ok]), cfg)
-            n = len(ok)
-            id_boxes[bi, :n] = ib
-            pose_boxes[bi, :n] = eb
-            valid[bi, :n] = True
-            tids_tbl[bi, :n] = [t for _, t in ok]
+            if ok:
+                n = len(ok)
+                id_boxes[bi, :n] = np.asarray([b for b, _ in ok], np.float32)
+                pose_boxes[bi, :n] = expand_boxes(
+                    np.asarray([b for b, _ in ok]), cfg)
+                valid[bi, :n] = True
+                tids_tbl[bi, :n] = [t for _, t in ok]
+
+        if use_device_tracker:
+            # association for the whole chunk on the device
+            from macaque_tpu_torch.tracking.device_tracker import (
+                track_chunk_device)
+
+            sc = np.where(scores_all > cfg.score_thr, scores_all, 0.0)
+            dev_table, tboxes, ttids = track_chunk_device(
+                dev_table, boxes_all, sc,
+                high_thresh=cfg.tracker.track_high_thresh,
+                low_thresh=cfg.tracker.track_low_thresh,
+                new_thresh=cfg.tracker.new_track_thresh,
+                match_thresh=cfg.tracker.match_thresh,
+                track_buffer=cfg.tracker.track_buffer,
+            )
+            tboxes = tboxes.cpu().numpy()
+            ttids = ttids.cpu().numpy()
+            for bi in range(len(rows_c)):
+                act = np.where(ttids[bi] >= 0)[0]
+                if (sc[bi] > 0).sum() == 0:
+                    missed_detections += 1
+                elif act.size == 0:
+                    missed_tracks += 1
+                ok = []
+                for slot in act:
+                    x1, y1, x2, y2 = map(int, tboxes[bi, slot])
+                    if x2 > x1 and y2 > y1:
+                        ok.append(((x1, y1, x2, y2), int(ttids[bi, slot])))
+                place(bi, ok)
+        else:
+            for bi in range(len(rows_c)):
+                keep = scores_all[bi] > cfg.score_thr
+                det_boxes = boxes_all[bi][keep]
+                det_scores = scores_all[bi][keep]
+                if det_boxes.shape[0] == 0:
+                    # the reference skips the tracker entirely on frames
+                    # with no above-threshold detections (step1:229-236),
+                    # so lost-track aging counts detection frames only
+                    missed_detections += 1
+                    continue
+                tb, tids = tracker.update(det_boxes, det_scores)
+                if det_boxes.shape[0] > 0 and len(tids) == 0:
+                    missed_tracks += 1
+                ok = []
+                for (x1, y1, x2, y2), tid in zip(tb, tids):
+                    xi1, yi1, xi2, yi2 = map(int, (x1, y1, x2, y2))
+                    if xi2 > xi1 and yi2 > yi1:
+                        ok.append(((xi1, yi1, xi2, yi2), tid))
+                place(bi, ok)
 
         tt["track"] += _tick() - t0
 
@@ -265,6 +307,7 @@ def run_step1(
     cfg: Step1Config = Step1Config(),
     chunk: int = 32,
     redo: bool = False,
+    use_device_tracker: bool = False,
     parallel_cameras: int = 1,
     prefetch: bool | None = None,
 ) -> list[str]:
@@ -297,6 +340,7 @@ def run_step1(
         backend = perception(cam) if callable(perception) else perception
         out_dir = os.path.join(results_root, data_name, cam)
         process_camera(store, out_dir, T, backend, cfg, chunk, redo,
+                       use_device_tracker=use_device_tracker,
                        prefetch=prefetch)
         return out_dir
 

@@ -100,7 +100,11 @@ def build_torch_perception(weights_dir: str, device=None, *, int8=None,
     det_kw = dict(swin=SwinConfig(compute_dtype=dtype), compute_dtype=dtype)
     det = SwinMaskRCNN(DetectorConfig.serving(**det_kw) if tier.serving
                        else DetectorConfig(**det_kw), device=device)
-    pose = ViTPose(VitPoseConfig(compute_dtype=dtype), device=device)
+    # the packed attention kernel on the card, as the JAX package sets its
+    # Pallas kernel on the TPU
+    pose = ViTPose(VitPoseConfig(compute_dtype=dtype,
+                                 use_pallas_attention=device.type == "cuda"),
+                   device=device)
     idm = ResNetClassifier(ResNetConfig(compute_dtype=dtype), device=device)
     load_checkpoint(det, os.path.join(weights_dir, "detection/detection.pth"))
     pose_sd = load_checkpoint(pose, os.path.join(weights_dir, "pose/pose.pth"))

@@ -170,11 +170,15 @@ class SyntheticPerception:
     """Oracle backend: detections/poses/IDs from ground-truth projections
     with Gaussian noise; per-camera instance (factory pattern). The JAX
     package's ``SyntheticPerception``, drawing from the same
-    ``default_rng(seed + cam_index)`` in the same order."""
+    ``default_rng(seed + cam_index)`` in the same order. The oracle itself
+    computes on the host; ``device`` is where step 1's on-device tracker
+    keeps its table (None: the card)."""
 
     def __init__(self, cam_index: int, proj: np.ndarray, noise=1.0,
-                 max_det=8, seed=0, id_classes=None, drop_prob=0.0):
+                 max_det=8, seed=0, id_classes=None, drop_prob=0.0,
+                 device=None):
         self.cam = cam_index
+        self.device = device
         self.proj = proj  # (C, A, T, J, 2)
         self.noise = noise
         self.max_det = max_det

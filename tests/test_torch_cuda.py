@@ -867,6 +867,26 @@ def test_run_pipeline_runs_on_the_card_by_default(card, tmp_path):
         assert np.nanmedian(e) < 30.0
 
 
+def test_device_tracker_on_a_camera_thread_pool(card, tmp_path):
+    """``run_step1`` with the device tracker on the card, its cameras on a
+    pool of 2 threads, writes what the sequential loop writes."""
+    from macaque_tpu_torch.pipeline.artifacts import read_alldata
+    from macaque_tpu_torch.pipeline.step1 import run_step1
+    from macaque_tpu_torch.tools.synthetic import SyntheticPerception
+
+    rig, _, proj = _pipeline_scene(tmp_path)
+    rows = {}
+    for workers in (1, 2):
+        dirs = run_step1("synth", str(tmp_path / f"r{workers}"),
+                         str(tmp_path / "videos"),
+                         lambda c: SyntheticPerception(
+                             rig.camera_ids.index(c), proj, device="cuda"),
+                         use_device_tracker=True, parallel_cameras=workers)
+        assert len(dirs) == rig.n_cam
+        rows[workers] = [read_alldata(d)[0] for d in dirs]
+    assert rows[2] == rows[1] and any(any(r) for r in rows[1][0])
+
+
 def test_rgba_reader_gives_the_drawn_frames_on_the_cards_machine(card,
                                                                 tmp_path):
     from macaque_tpu_torch.tools.synthetic import draw_frames
@@ -902,3 +922,161 @@ def test_overlay_points_on_the_card_match_the_cpu(card):
         np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
         np.testing.assert_array_equal(default, got)
+
+
+# ------------------------------------------- kernels refuse autograd inputs
+
+def _grad_cases(card):
+    """(name, kernels.LAUNCHES key, call(requires_grad) -> output) for each
+    wrapper that launches a kernel, at a shape it was built for."""
+    from macaque_tpu_torch.nn.swin_block import fused_swin_block
+
+    rng = np.random.default_rng(30)
+
+    def leaf(t, rg):
+        return t.detach().requires_grad_(rg)
+
+    qkv = _bf16(card, rng, 2, 192, 3 * 1280)
+    win = _bf16(card, rng, 8, 49, 3 * 96)
+    wbias = torch.zeros((3, 49, 49), device=card)
+    q, k, v = (_bf16(card, rng, 1, 192, 16, 80) for _ in range(3))
+    feats = _roi_feats(card, rng, 1, 256)
+    rois = torch.tensor([[[8.0, 8, 120, 100], [200, 150, 260, 300]]],
+                        device=card)
+    roi_args = window_inputs(feats, rois, torch.tensor([[1, 2]], device=card),
+                             7, STRIDES)
+    x, wq, ws, b = _int8_inputs(card, 64, 1280, 256)
+    lin = Int8Linear(1280, 256, device=card)
+    lin.load_state_dict({"weight_q": wq, "wscale": ws, "bias": b})
+    sw = _swin_block_case(card, 31, 96, 1, (2, 2), False)
+    return [
+        ("packed_attention", "packed_attention",
+         lambda rg: packed_attention(leaf(qkv, rg), 16)),
+        ("window_attention", "window_attention",
+         lambda rg: window_attention(leaf(win, rg), wbias, None, 3)),
+        ("fused_attention", "attention",
+         lambda rg: fused_attention(leaf(q, rg), k, v)),
+        ("roi_align_windows", "roi_align_windowed",
+         lambda rg: roi_align_windows(leaf(roi_args[0], rg), *roi_args[1:])),
+        ("quantize_rows", "quantize_rows",
+         lambda rg: quantize_rows(leaf(x, rg))[1]),
+        ("quant_int8_matmul", "quant_int8_matmul",
+         lambda rg: quant_int8_matmul(leaf(x, rg), wq, ws, b)),
+        ("quant_int8_matmul_split", "quantize_rows",
+         lambda rg: quant_int8_matmul_split(leaf(x, rg), wq, ws, b)),
+        ("Int8Linear", "quant_int8_matmul", lambda rg: lin(leaf(x, rg))),
+        ("fused_swin_block", "swin_block",
+         lambda rg: fused_swin_block(leaf(sw[0], rg), *sw[1:])),
+    ]
+
+
+def test_kernel_wrappers_refuse_inputs_that_require_grad(card):
+    """A kernel's output has no grad_fn: with grad enabled and an input that
+    requires grad, every wrapper raises before it launches (the count does
+    not move); under no_grad, or without such an input, it launches."""
+    for name, key, call in _grad_cases(card):
+        n = kernels.LAUNCHES[key]
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(True)
+        assert kernels.LAUNCHES[key] == n, name
+        with torch.no_grad():
+            assert not call(True).requires_grad
+        call(False)
+        assert kernels.LAUNCHES[key] == n + 2, name
+
+
+def test_training_takes_no_kernel_and_the_serving_vit_refuses_to_train(card):
+    from macaque_tpu_torch.nn import ViTPose, VitPoseConfig
+    from macaque_tpu_torch.nn import train as ttrain
+
+    def step(use_kernel):
+        torch.manual_seed(0)
+        m = ViTPose(VitPoseConfig(compute_dtype=torch.bfloat16,
+                                  use_pallas_attention=use_kernel, depth=2),
+                    device=card)
+        p, s = ttrain.train_state(m)
+        opt = ttrain.make_pose_optimizer(p, num_layers=2)
+        rng = np.random.default_rng(0)
+        crops = torch.from_numpy(rng.normal(0, 1, (2, 256, 192, 3))
+                                 .astype(np.float32)).to(card)
+        kps = torch.from_numpy(rng.uniform(8, 180, (2, 17, 2))
+                               .astype(np.float32)).to(card)
+        return ttrain.make_pose_train_step(m, opt)(
+            p, s, opt.init(p), crops, kps, torch.ones(2, 17, device=card))
+
+    before = dict(kernels.LAUNCHES)
+    loss = step(False)[3]
+    assert torch.isfinite(loss) and kernels.LAUNCHES == before
+    with pytest.raises(RuntimeError, match="no backward"):
+        step(True)
+
+
+def test_pose_train_step_on_the_card_matches_the_cpu(card):
+    """Two small-width float32 pose steps: loss and parameters within 1e-4
+    relative of the CPU's (TF32 off for the convolutions)."""
+    from macaque_tpu_torch.nn import ViTPose, VitPoseConfig
+    from macaque_tpu_torch.nn import train as ttrain
+
+    cfg = VitPoseConfig(img_size=(64, 48), embed_dim=64, depth=2, num_heads=4,
+                        deconv_channels=(32, 32))
+    torch.manual_seed(0)
+    sd = ViTPose(cfg, device="cpu").state_dict()
+    rng = np.random.default_rng(1)
+    batch = (rng.normal(0, 1, (4, 64, 48, 3)).astype(np.float32),
+             rng.uniform(8, 40, (4, 17, 2)).astype(np.float32),
+             np.ones((4, 17), np.float32))
+    out = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", card):
+            m = ViTPose(cfg, device=dev)
+            m.load_state_dict(sd)
+            p, s = ttrain.train_state(m)
+            opt = ttrain.make_pose_optimizer(
+                p, schedule=ttrain.pose_lr_schedule(2e-3, warmup_steps=5),
+                num_layers=2)
+            st, step = opt.init(p), ttrain.make_pose_train_step(m, opt)
+            losses = []
+            for _ in range(2):
+                p, s, st, loss = step(p, s, st, *(torch.from_numpy(a).to(dev)
+                                                  for a in batch))
+                losses.append(float(loss))
+            out[str(dev)] = losses, {k: v.cpu() for k, v in {**p, **s}.items()}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (lc, pc), (lg, pg) = out["cpu"], out[str(card)]
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    for k, v in pc.items():
+        np.testing.assert_allclose(pg[k].numpy(), v.numpy(), rtol=1e-4,
+                                   atol=1e-4 * v.abs().max().item(), err_msg=k)
+
+
+@pytest.mark.parametrize("dtype, atol", [(torch.float32, 1e-3),
+                                         (torch.float64, 1e-9)])
+def test_device_tracker_on_the_card_matches_the_cpu(card, dtype, atol):
+    from macaque_tpu_torch.tracking import make_table, track_chunk_device
+
+    rng = np.random.default_rng(4)
+    T, D = 48, 8
+    c0 = rng.uniform(200, 1800, (5, 2))
+    boxes = np.zeros((T, D, 4))
+    scores = np.zeros((T, D))
+    for t in range(T):
+        for a in range(5):
+            if rng.uniform() < 0.1:
+                continue
+            c = c0[a] + 3 * t + rng.normal(0, 1.5, 2)
+            boxes[t, a] = [c[0] - 60, c[1] - 90, c[0] + 60, c[1] + 90]
+            scores[t, a] = rng.uniform(0.3, 0.99)
+    _, bc, tc = track_chunk_device(make_table(16, "cpu", torch.float64),
+                                   boxes, scores)
+    table = make_table(16, card, dtype)
+    assert table.mean.device.type == "cuda"
+    outs = [track_chunk_device(table, boxes[:24], scores[:24])]
+    outs.append(track_chunk_device(outs[0][0], boxes[24:], scores[24:]))
+    tg = torch.cat([o[2] for o in outs]).cpu()
+    bg = torch.cat([o[1] for o in outs]).cpu().double()
+    assert torch.equal(tg, tc) and (tc >= 0).sum() > 50
+    np.testing.assert_array_equal(torch.isnan(bg).numpy(), torch.isnan(bc).numpy())
+    np.testing.assert_allclose(bg.numpy(), bc.numpy(), rtol=0, atol=atol)

@@ -198,10 +198,23 @@ def test_stage_times_reported(runs):
     assert all(v >= 0 for v in stages.values())
 
 
-def test_device_tracker_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError):
-        process_camera(None, str(tmp_path), np.zeros(1), None,
-                       use_device_tracker=True)
+def test_device_tracker_not_ported(runs, tmp_path):
+    """The on-device tracker, once refused here, is ported: on the same
+    store and perception (its table on the perception's CPU) it writes the
+    host tracker's rows, this scene's three static animals tracked alike.
+    Its parity with the JAX package's device tracker is in
+    test_torch_device_tracker.py."""
+    out, _, port, root = runs
+    T = make_time_grid(JReader(str(root / "demo.cam0")).get_frame_metadata()[
+        "frame_time"], 24.0)
+    process_camera(ImgStoreReader(str(root / "demo.cam0")), str(tmp_path), T,
+                   port, Step1Config(), chunk=4, prefetch=False,
+                   use_device_tracker=True)
+    with open(tmp_path / "alldata.json") as f:
+        rows = json.load(f)
+    np.testing.assert_array_equal(np.load(tmp_path / "frame_num.npy"),
+                                  out["torch"][1])
+    assert rows == out["torch"][0]
 
 
 def test_skips_finished_camera(runs, tmp_path):
