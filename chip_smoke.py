@@ -75,15 +75,27 @@ Phases, one line each with elapsed seconds:
                autoencoder on 4,800 frames; bf16 compute with float32
                parameters; seconds a step, throughput, peak memory, the
                pose step's bound; losses fall, the first step repeats, no
-               kernel launches, a small pose step card against CPU.
-Steps 2-4, the tracker and the trainers run no hand-written kernel (the JAX
-package runs them as plain XLA); a step phase runs the step phases before
-it, on one scene.
+               kernel launches, a small pose step card against CPU;
+ 11. calib   - the calibration (``calib/bundle.py``, ``calib/workflow.py``,
+               ``compat/aniposelib.py``) at the reference rig's size (8
+               omnidir cameras at 2048x1536): the omnidir and fisheye
+               intrinsic fits of 10 board views, the extrinsic and full
+               bundle adjustments of a 1,440-point marker trace, the
+               facade's ``bundle_adjust_iter``, ``triangulate``,
+               ``triangulate_ransac`` and ``optim_points_possible``; each
+               solver's wall, LM steps, CG sweeps and host reads; (a) card
+               against CPU at the tests' short budget, (b) the production
+               budgets in float32 and float64 against the truth, (c) no
+               kernel launch.
+Steps 2-4, the tracker, the trainers and the calibration run no
+hand-written kernel (the JAX package runs them as plain XLA); a step phase
+runs the step phases before it, on one scene.
 The second-to-last line is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``. Any failed phase raises, so the
 script exits non-zero and prints no result; so it does without a CUDA
 device. ``--phases device,build,kernels`` runs a subset (``device,step4``
-steps 2-4 alone, ``device,tracker,train`` the tracker and the trainers);
+steps 2-4 alone, ``device,tracker,train`` the tracker and the trainers,
+``device,calib`` the calibration);
 ``--phases device,build,kernels,main,profile`` adds a torch.profiler pass
 over one chunk (device time by kernel, idle share, a chrome trace under
 chiprun_out/).
@@ -2454,6 +2466,393 @@ def phase_train(sizes=TRAIN_FULL):
         f"{time.perf_counter() - t0:.1f}s")
 
 
+# ------------------------------------------------------------ calibration
+
+# The reference rig (SURVEY L6): 8 omnidir cameras at 2048x1536, the ring of
+# tools/synthetic.py::make_test_rig with its 640x480 intrinsics scaled 3.2x.
+# Intrinsics: one camera, the reference's 9x6 board (mct:34-35) of 23 mm
+# squares, in 10 views (the reference gives no count; cut from 60 for the
+# time limit: the float64 fisheye fit of this scene converges at 10 views
+# and runs its 400-sweep cap every LM step at 20 and at 60, while the
+# omnidir fit and the float32 fisheye fit run their whole budgets at any
+# count) with 0.1 px noise.
+# Marker BA: the cube-centre trace of a 310 s recording at 24 fps sampled
+# every 5th frame with 5 s cut at each end (workflow.py:388-391): 1,440
+# points, 0.2 px noise, 5 % of detections dropped, cameras 1-7 perturbed as
+# tests/test_calib_workflow.py's marker_scene. Facade: one animal's 17
+# joints over 240 frames, 2 px noise, a decoy candidate 40-80 px away.
+CALIB_FULL = {"cams": 8, "views": 10, "trace": 1440, "frames": 240,
+              "iter_rounds": 10, "iter_samples": 1000}
+CALIB_SHORT = (15, 2)          # the tier-1 tests' short budget
+CALIB_SCALE = 3.2              # 640x480 -> 2048x1536
+BOARD_NOISE, TRACE_NOISE = 0.1, 0.2
+FISHEYE_D = np.array([-0.015, 0.006, 0.0, 0.0])
+
+
+def calib_scene(sizes, seed=0):
+    """The phase's numpy inputs, made from ``seed`` with the port's float64
+    projections on the CPU."""
+    from macaque_tpu_torch.calib.boards import chessboard_object_points
+    from macaque_tpu_torch.cameras.fisheye import (
+        FisheyeCamera, fisheye_project)
+    from macaque_tpu_torch.cameras.omnidir import (
+        OmnidirCamera, omnidir_project)
+    from macaque_tpu_torch.tools.synthetic import make_test_rig, simulate_scene
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64))
+
+    rng = np.random.default_rng(seed)
+    rig = make_test_rig(sizes["cams"], seed)
+    rig.K = rig.K.copy()
+    rig.K[:, :2] *= CALIB_SCALE
+    rig.size = (2048, 1536)
+    V = sizes["views"]
+    board = chessboard_object_points(9, 6, 23.0)
+    rv = np.array([np.pi, 0, 0]) + rng.uniform(-0.4, 0.4, (V, 3))
+    tv = np.stack([rng.uniform(-250, 250, V), rng.uniform(-180, 180, V),
+                   rng.uniform(450, 900, V)], 1)
+    K0 = np.repeat(rig.K[:1], V, 0)
+    omni = omnidir_project(OmnidirCamera(
+        t(K0), t(np.repeat(rig.xi[:1], V)), t(np.repeat(rig.D[:1], V, 0)),
+        t(rv), t(tv)), t(board)).numpy()
+    fish = fisheye_project(FisheyeCamera(
+        t(K0), t(np.repeat(FISHEYE_D[None], V, 0)), t(rv), t(tv)),
+        t(board)).numpy()
+    f0, c0 = rig.K[0, 0, 0], rig.K[0, :2, 2]
+    intr = dict(obj=np.tile(board[None], (V, 1, 1)),
+                omni=omni + rng.normal(0, BOARD_NOISE, omni.shape),
+                fish=fish + rng.normal(0, BOARD_NOISE, fish.shape),
+                kw=dict(init_f=0.9 * f0, init_c=(c0[0] + 15, c0[1] - 10),
+                        img_size=rig.size,
+                        init_rvecs=rv + rng.normal(0, 0.02, (V, 3)),
+                        init_tvecs=tv + rng.normal(0, 20, (V, 3))))
+
+    P = sizes["trace"]
+    s = np.arange(P) / P * 2 * np.pi
+    pts = np.stack([900 * np.sin(3 * s) + 150 * np.sin(17 * s),
+                    900 * np.cos(2 * s) + 150 * np.cos(13 * s),
+                    800 + 500 * np.sin(5 * s)], 1)
+    cam = rig.omni("cpu", torch.float64)
+    obs = omnidir_project(cam, t(pts)).numpy()
+    obs += rng.normal(0, TRACE_NOISE, obs.shape)
+    obs[rng.uniform(size=obs.shape[:2]) < 0.05] = np.nan
+    rvec0, tvec0 = rig.rvec.copy(), rig.tvec.copy()
+    rvec0[1:] += rng.normal(0, 0.02, rvec0[1:].shape)
+    tvec0[1:] += rng.normal(0, 30.0, tvec0[1:].shape)
+    trace = dict(obs=obs, pts=pts, rvec0=rvec0, tvec0=tvec0)
+
+    kp3d = simulate_scene(1, sizes["frames"], seed=seed)[0]   # (F, 17, 3)
+    F, J, _ = kp3d.shape
+    pix = omnidir_project(cam, t(kp3d.reshape(-1, 3))).numpy().reshape(
+        rig.n_cam, F, J, 2)
+    pix += rng.normal(0, 2.0, pix.shape)
+    pix[rng.uniform(size=pix.shape[:3]) < 0.1] = np.nan
+    decoy = pix + rng.uniform(40, 80, pix.shape) * rng.choice([-1, 1],
+                                                            pix.shape)
+    from macaque_tpu_torch.core.config import (
+        MACAQUE_CONSTRAINTS, MACAQUE_CONSTRAINTS_WEAK, constraint_indices)
+
+    facade = dict(kp3d=kp3d, pix=pix, cands=np.stack([pix, decoy], 3),
+                  cons=constraint_indices(MACAQUE_CONSTRAINTS),
+                  weak=constraint_indices(MACAQUE_CONSTRAINTS_WEAK))
+    return rig, intr, trace, facade
+
+
+def calib_sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def calib_timed(name, fn, *args, **kw):
+    """``fn(*args, **kw, info=...)`` with its wall time on its device and
+    its LM counts, logged; returns (output, info, seconds)."""
+    info = {}
+    calib_sync(kw["device"])
+    t = time.perf_counter()
+    out = fn(*args, **kw, info=info)
+    calib_sync(kw["device"])
+    wall = time.perf_counter() - t
+    log(f"calib {name}: {wall:.3f}s, {info['lm_steps']} LM steps, "
+        f"{info['cg_sweeps']} CG sweeps, {info['host_reads']} host reads, "
+        f"{1e3 * wall / max(info['cg_sweeps'], 1):.3f} ms a sweep; cost "
+        f"{info['cost0']:.6g} -> {info['cost']:.6g}, rms {out[-1]:.6f} px")
+    return out, info, wall
+
+
+def calib_solves(rig, intr, trace, device, dtype, cfg=None, prefix=""):
+    """The solvers of the calibration on the phase's scene: the two
+    intrinsic fits of camera 0's board views, then the
+    extrinsic and the full BA of the marker trace from the perturbed rig,
+    its structure DLT-triangulated as the drivers do. ``cfg`` (LM
+    iterations, CG sweeps) overrides every default budget. Returns
+    {name: (output, info, s)}."""
+    from macaque_tpu_torch.calib import bundle
+    from macaque_tpu_torch.calib.workflow import _triangulate_trace
+    from macaque_tpu_torch.geometry.lm import LMConfig
+
+    def budget(lm_iters, cg_iters, ftol):
+        if cfg is not None:
+            lm_iters, cg_iters = cfg
+        return {"cfg": LMConfig(lm_iters=lm_iters, cg_iters=cg_iters,
+                                ftol=ftol)}
+
+    on = {"device": device, "dtype": dtype}
+    tag = f"{prefix}{str(dtype).split('.')[-1]}"
+    out = {}
+    out["omnidir_intrinsics"] = calib_timed(
+        f"calibrate_intrinsics_omnidir ({tag})",
+        bundle.calibrate_intrinsics_omnidir, intr["obj"], intr["omni"],
+        **intr["kw"], **budget(300, 150, 1e-12), **on)
+    out["fisheye_intrinsics"] = calib_timed(
+        f"calibrate_intrinsics_fisheye ({tag})",
+        bundle.calibrate_intrinsics_fisheye, intr["obj"], intr["fish"],
+        **intr["kw"], **budget(600, 400, 1e-15), **on)
+    K, xi, D = rig.K, rig.xi, rig.D
+    obs, rv0, tv0 = trace["obs"], trace["rvec0"], trace["tvec0"]
+    pts0 = _triangulate_trace(obs, K, xi, D, rv0, tv0, device, dtype)
+    seen = ~np.isnan(pts0[:, 0])
+    args = (K, xi, D, rv0, tv0, obs[:, seen], np.nan_to_num(pts0[seen]))
+    out["extrinsic_ba"] = calib_timed(
+        f"bundle_adjust_extrinsics ({tag}, {int(seen.sum())} points)",
+        bundle.bundle_adjust_extrinsics, *args, **budget(50, 80, 1e-8), **on)
+    out["full_ba"] = calib_timed(
+        f"bundle_adjust_full ({tag}, {int(seen.sum())} points)",
+        bundle.bundle_adjust_full, *args, **budget(60, 100, 1e-9), **on)
+    return out
+
+
+def calib_positions(rv, tv, rig):
+    """Camera-centre errors (mm) against the rig after the scale alignment
+    about camera 0 (tests/test_calib_workflow.py::_campos_errors)."""
+    from macaque_tpu_torch.calib.workflow import camera_position
+
+    pos = np.stack([camera_position(r, t) for r, t in zip(rv, tv)])
+    gt = np.stack([camera_position(r, t) for r, t in zip(rig.rvec, rig.tvec)])
+    s = np.mean(np.linalg.norm(gt[1:] - gt[0], axis=1)
+                / np.linalg.norm(pos[1:] - pos[0], axis=1))
+    return np.linalg.norm((pos - pos[0]) * s + gt[0] - gt, axis=1), s
+
+
+def calib_self_consistency(out, obs, device, dtype):
+    """DLT-triangulate the trace with the full BA's calibration and
+    reproject: rms over the observations (px)."""
+    from macaque_tpu_torch.calib.workflow import _triangulate_trace
+    from macaque_tpu_torch.cameras.omnidir import (
+        OmnidirCamera, omnidir_project)
+
+    K, xi, D, rv, tv = out[:5]
+    pts = _triangulate_trace(obs, K, xi, D, rv, tv, device, dtype)
+    seen = ~np.isnan(pts[:, 0])
+    cam = OmnidirCamera(*(torch.as_tensor(a, dtype=torch.float64)
+                          for a in (K, xi, D, rv, tv)))
+    reproj = omnidir_project(cam, torch.as_tensor(pts[seen])).numpy()
+    return float(np.sqrt(np.nanmean((reproj - obs[:, seen]) ** 2)))
+
+
+def check_calib_production(res, rig, trace, dtype, dev):
+    """Check (b) on one precision's production run: every rms under twice
+    its injected noise, the extrinsic BA's cameras within 3 mm of the truth
+    after the scale alignment, the full BA's self-consistency rms under
+    0.5 px."""
+    bad = []
+    for name, noise in (("omnidir_intrinsics", BOARD_NOISE),
+                        ("fisheye_intrinsics", BOARD_NOISE),
+                        ("extrinsic_ba", TRACE_NOISE),
+                        ("full_ba", TRACE_NOISE)):
+        rms = res[name][0][-1]
+        if not rms < 2 * noise:
+            bad.append(f"{name} rms {rms}")
+    errs, s = calib_positions(*res["extrinsic_ba"][0][:2], rig)
+    self_rms = calib_self_consistency(res["full_ba"][0], trace["obs"],
+                                      dev, dtype)
+    log(f"calib (b) {str(dtype).split('.')[-1]}: extrinsic BA camera "
+        f"positions after the scale alignment (s = {s:.6f}) within "
+        f"{errs.max():.4f} mm of the truth; full BA self-consistency rms "
+        f"{self_rms:.6f} px")
+    if not errs.max() < 3.0:
+        bad.append(f"extrinsic BA positions {errs}")
+    if not self_rms < 0.5:
+        bad.append(f"full BA self-consistency rms {self_rms}")
+    if bad:
+        raise AssertionError("calib (b): " + "; ".join(bad))
+
+
+def check_calib_devices(rig, intr, trace, facade, dev):
+    """Check (a): the card against the CPU, both float64, at the tier-1
+    tests' short budget: equal LM iterations and CG sweeps, every output
+    within 1e-9 of its largest value (the tests' tolerance); the facade's
+    triangulation within 1e-9 and its multi-hypothesis refinement within
+    1e-9 at the same short budget."""
+    from macaque_tpu_torch.compat.aniposelib import CameraGroup
+    from macaque_tpu_torch.geometry.refine3d import (
+        RefineConfig, refine_points_3d_possible)
+
+    f64 = torch.float64
+    card = calib_solves(rig, intr, trace, dev, f64, CALIB_SHORT, "short, ")
+    host = {}
+    for name, (out, info, _) in calib_solves(
+            rig, intr, trace, "cpu", f64, CALIB_SHORT, "short CPU, ").items():
+        host[name] = (out, info)
+    worst = 0.0
+    for name, (out, info, _) in card.items():
+        h_out, h_info = host[name]
+        if (info["lm_iters"], info["cg_iters"]) != (h_info["lm_iters"],
+                                                    h_info["cg_iters"]):
+            raise AssertionError(f"calib (a) {name}: counts differ, card "
+                                 f"{info} CPU {h_info}")
+        for g, h in zip(out, h_out):
+            g, h = np.asarray(g, float), np.asarray(h, float)
+            worst = max(worst, float(np.abs(g - h).max())
+                        / max(float(np.abs(h).max()), 1e-30))
+    n_cam, (F, J) = rig.n_cam, facade["kp3d"].shape[:2]
+    flat = facade["pix"].reshape(n_cam, F * J, 2)
+    tri = [CameraGroup(rig, d, f64).triangulate(flat) for d in (dev, "cpu")]
+    scale = np.nanmax(np.abs(tri[1]))
+    d_tri = float(np.nanmax(np.abs(tri[0] - tri[1]))) / scale
+    same_nan = np.array_equal(np.isnan(tri[0]), np.isnan(tri[1]))
+    init = tri[1].reshape(F, J, 3)
+    poss = []
+    for d in (dev, "cpu"):
+        cam = rig.camera(d, f64)
+        p3, a = refine_points_3d_possible(
+            cam, torch.as_tensor(facade["cands"], device=d),
+            torch.as_tensor(init, device=d), facade["cons"], facade["weak"],
+            RefineConfig(lm_iters=CALIB_SHORT[0], cg_iters=CALIB_SHORT[1]))
+        poss.append((p3.cpu().numpy(), a.cpu().numpy()))
+    d_p3 = float(np.abs(poss[0][0] - poss[1][0]).max()
+                 / np.abs(poss[1][0]).max())
+    d_a = float(np.nanmax(np.abs(poss[0][1] - poss[1][1])))
+    log(f"calib (a) card against CPU, float64, {CALIB_SHORT[0]} LM "
+        f"iterations of {CALIB_SHORT[1]} CG sweeps: counts equal, solver "
+        f"outputs within {worst:.3e} of their largest value; facade "
+        f"triangulate NaN pattern equal {same_nan}, rel {d_tri:.3e}; "
+        f"possible refinement points rel {d_p3:.3e}, weights {d_a:.3e}")
+    if not (worst <= 1e-9 and same_nan and d_tri <= 1e-9 and d_p3 <= 1e-9
+            and d_a <= 1e-9):
+        raise AssertionError("calib (a): the card differs from the CPU")
+
+
+def calib_graph_gain(intr, dev, cfg=(2, 150)):
+    """The omnidir intrinsic fit, float32, a few LM steps of 150 sweeps,
+    with its sweeps eager (the solver's loop without graphs,
+    ``lm._lm_solve_batch``) and replayed from CUDA graphs (``lm_solve`` on
+    the card): ms a sweep each way (second calls), and the two outputs bit
+    for bit equal (the same kernels on the same buffers)."""
+    from macaque_tpu_torch.calib import bundle
+    from macaque_tpu_torch.geometry import lm
+
+    def eager(resid_fn, x0, cfg, return_info=False):
+        x, info = lm._lm_solve_batch(resid_fn, x0, cfg)
+        return (x, info) if return_info else x
+
+    solve, got = bundle.lm_solve, {}
+    for graph in (False, True, False, True):
+        bundle.lm_solve = solve if graph else eager
+        try:
+            out, info, wall = calib_timed(
+                f"calibrate_intrinsics_omnidir ({'graph' if graph else 'eager'}"
+                f" sweeps, float32)", bundle.calibrate_intrinsics_omnidir,
+                intr["obj"], intr["omni"], **intr["kw"],
+                cfg=lm.LMConfig(lm_iters=cfg[0], cg_iters=cfg[1], ftol=1e-12),
+                device=dev, dtype=torch.float32)
+        finally:
+            bundle.lm_solve = solve
+        got[graph] = (out, 1e3 * wall / info["cg_sweeps"])
+    same = all(np.array_equal(np.asarray(a), np.asarray(b))
+               for a, b in zip(got[False][0], got[True][0]))
+    log(f"calib: {got[False][1]:.3f} ms a sweep eager, {got[True][1]:.3f} "
+        f"replayed from CUDA graphs; outputs bit for bit equal {same}")
+    if not same:
+        raise AssertionError("calib: graph-replayed sweeps differ from eager")
+
+
+def phase_calib(sizes=CALIB_FULL, dev="cuda"):
+    """The calibration on the card: the intrinsic fits, the marker-trace
+    bundle adjustments and the aniposelib facade at the reference rig's
+    size, no hand-written kernel on any of them. Checks (a) card against
+    CPU at the short budget, (b) the production budgets in float32 and in
+    float64, (c) no kernel launched during the phase; and the facade's
+    ``bundle_adjust_iter``, ``triangulate``, ``triangulate_ransac`` and
+    ``optim_points_possible`` against the truth."""
+    from macaque_tpu_torch import kernels
+    from macaque_tpu_torch.compat.aniposelib import CameraGroup
+
+    t0 = time.perf_counter()
+    before = dict(kernels.LAUNCHES)
+    rig, intr, trace, facade = calib_scene(sizes)
+    log(f"calib: scene of {rig.n_cam} cameras at {rig.size[0]}x"
+        f"{rig.size[1]}, {sizes['views']} board views, a trace of "
+        f"{sizes['trace']} points, {sizes['frames']} frames of 17 joints "
+        f"({time.perf_counter() - t0:.1f}s)")
+    check_calib_devices(rig, intr, trace, facade, dev)
+    calib_graph_gain(intr, dev)
+    walls = {}
+    for dtype in (torch.float32, torch.float64):
+        res = calib_solves(rig, intr, trace, dev, dtype)
+        walls[dtype] = sum(w for _, _, w in res.values())
+        check_calib_production(res, rig, trace, dtype, dev)
+
+    # the facade, float32 on the card (its default)
+    obs = trace["obs"]
+    g = CameraGroup(_perturbed(rig, trace), dev)
+    t = time.perf_counter()
+    err = g.bundle_adjust_iter(obs, n_iters=sizes["iter_rounds"],
+                               n_samp_full=sizes["iter_samples"])
+    t_iter = time.perf_counter() - t
+    n_cam, (F, J) = rig.n_cam, facade["kp3d"].shape[:2]
+    flat = facade["pix"].reshape(n_cam, F * J, 2)
+    g = CameraGroup(rig, dev)
+    t = time.perf_counter()
+    tri = g.triangulate(flat).reshape(F, J, 3)
+    t_tri = time.perf_counter() - t
+    noisy = flat.copy()
+    noisy[0, ::4] += 300.0                       # a camera's gross outliers
+    t = time.perf_counter()
+    ran = g.triangulate_ransac(noisy)[0].reshape(F, J, 3)
+    t_ran = time.perf_counter() - t
+    t = time.perf_counter()
+    poss, alphas = g.optim_points_possible(
+        facade["cands"], tri, constraints=facade["cons"],
+        constraints_weak=facade["weak"])
+    t_poss = time.perf_counter() - t
+
+    def median_mm(p):
+        return float(np.nanmedian(np.linalg.norm(p - facade["kp3d"], axis=-1)))
+
+    e_tri, e_ran, e_poss = median_mm(tri), median_mm(ran), median_mm(poss)
+    w_sum = np.nansum(alphas, -1)
+    valid = ~np.isnan(facade["cands"][..., 0]).all(-1)
+    log(f"calib facade (float32): bundle_adjust_iter {sizes['iter_rounds']} "
+        f"rounds of {sizes['iter_samples']} samples in {t_iter:.3f}s, final "
+        f"median error {err:.4f} px; triangulate {F * J} points in "
+        f"{t_tri:.3f}s, median {e_tri:.3f} mm from the truth; "
+        f"triangulate_ransac {t_ran:.3f}s, {e_ran:.3f} mm with camera 0's "
+        f"outliers; optim_points_possible {t_poss:.3f}s, {e_poss:.3f} mm")
+    # bounds: twice the trace's noise; 2 px of keypoint noise is ~10 mm
+    # of DLT error on this rig (a CPU rehearsal at 24 frames: 10.3 mm,
+    # RANSAC 22.4 mm at its 0.5 px threshold, the refinement 8.9 mm)
+    if not (err < 2 * TRACE_NOISE and e_tri < 20.0 and e_ran < 40.0
+            and np.isfinite(poss).all() and e_poss < e_tri + 5.0
+            and np.allclose(w_sum[valid], 1.0, atol=1e-5)):
+        raise AssertionError("calib: the facade's results are off")
+    if kernels.LAUNCHES != before:
+        raise AssertionError(f"calib (c): kernels launched: {before} -> "
+                             f"{kernels.LAUNCHES}")
+    log(f"calib (c): kernels.LAUNCHES unchanged; solver walls float32 "
+        f"{walls[torch.float32]:.1f}s, float64 {walls[torch.float64]:.1f}s;"
+        f" phase {time.perf_counter() - t0:.1f}s")
+
+
+def _perturbed(rig, trace):
+    """The rig with the trace's perturbed extrinsics (the facade's start)."""
+    import copy
+
+    out = copy.deepcopy(rig)
+    out.rvec, out.tvec = trace["rvec0"].copy(), trace["tvec0"].copy()
+    return out
+
+
 def phase_profile(perception, store, T):
     """One 16-frame chunk of process_camera under torch.profiler: device
     time by kernel, and device busy time against the wall clock."""
@@ -2488,7 +2887,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="device,build,kernels,main,step2,step3,step4,"
-                            "pipeline,tracker,train")
+                            "pipeline,tracker,train,calib")
     phases = ap.parse_args(argv).phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2564,6 +2963,9 @@ def main(argv=None) -> int:
         del models, perception
         torch.cuda.empty_cache()
         phase_train()
+    if "calib" in phases:
+        torch.cuda.empty_cache()
+        phase_calib()
     launches = {}
     if "main" in phases:
         from macaque_tpu_torch import kernels

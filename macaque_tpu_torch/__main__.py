@@ -2,9 +2,12 @@
 
 The JAX package's ``python -m macaque_tpu`` subcommands that drive the
 pipeline, with the same arguments: ``step1``, ``step2``, ``step3``,
-``step4``, ``render``, ``pipeline`` and ``validate``. Every stage runs on
-the card. The calibration's ``config.yaml`` and ``.h5`` files are read
-with PyYAML and h5py; ``render`` draws with cv2.
+``step4``, ``render``, ``pipeline`` and ``validate``; and the calibration's
+``label-cage`` and ``calibrate`` (every ``--step``), the latter with
+``--device`` last (the card when not given). Every stage runs on the card.
+The calibration's ``config.yaml`` and ``.h5`` files are read with PyYAML
+and h5py; ``render`` draws with cv2, and the calibration detects boards
+and markers with cv2.
 """
 
 from __future__ import annotations
@@ -41,6 +44,30 @@ def parser() -> argparse.ArgumentParser:
     sp.add_argument("kp3d_pickle")
     sp.add_argument("gt_pickle")
     sp.add_argument("--threshold", type=float, default=400.0)
+
+    sp = sub.add_parser(
+        "label-cage", help="interactively click cage keypoints per "
+        "camera (needs a display; writes cagepoints_annotation.h5)")
+    sp.add_argument("config", help="path to calib config.yaml")
+
+    sp = sub.add_parser(
+        "calibrate",
+        help="calibrate the rig from recorded board/marker videos "
+             "(multicam_toolbox workflow)")
+    sp.add_argument("config", help="path to calib config.yaml")
+    sp.add_argument("--step", default="all",
+                    choices=("all", "chessboard", "intrinsic",
+                             "cage-extrinsic", "marker", "cube",
+                             "optimize", "optimize-full", "fix"))
+    sp.add_argument("--marker-mode", default="cube",
+                    choices=("cube", "marker"))
+    sp.add_argument("--frame-intv", type=int, default=5)
+    sp.add_argument("--fps", type=float, default=24.0)
+    sp.add_argument("--ref", type=int, default=0,
+                    help="reference camera for the 'fix' step")
+    sp.add_argument("--device", default=None,
+                    help="torch device of the solvers (the card when not "
+                         "given; 'cpu' for the CPU)")
     return p
 
 
@@ -102,6 +129,37 @@ def main(argv=None):
         r = validate_kp3d_file(args.kp3d_pickle, args.gt_pickle,
                                args.threshold)
         print(r)
+    elif args.cmd == "label-cage":
+        from macaque_tpu_torch.calib.labeler import label_cage_keypoints
+
+        print(label_cage_keypoints(args.config))
+    elif args.cmd == "calibrate":
+        from macaque_tpu_torch.calib import workflow as wf
+
+        on = {"device": args.device}
+        if args.step == "all":
+            wf.calibrate_from_videos(
+                args.config, marker_mode=args.marker_mode,
+                frame_intv=args.frame_intv, fps=args.fps, **on)
+        elif args.step == "chessboard":
+            wf.analyze_chessboard_videos(args.config,
+                                         frame_intv=args.frame_intv)
+        elif args.step == "intrinsic":
+            wf.calibrate_intrinsics_driver(args.config, **on)
+        elif args.step == "cage-extrinsic":
+            wf.get_extrinsics_from_cage_keypoints(args.config)
+        elif args.step == "marker":
+            wf.analyze_aruco_marker_videos(args.config)
+        elif args.step == "cube":
+            wf.analyze_aruco_cube_videos(args.config,
+                                         frame_intv=args.frame_intv,
+                                         fps=args.fps)
+        elif args.step == "optimize":
+            wf.optimize_extrinsics_driver(args.config, **on)
+        elif args.step == "optimize-full":
+            wf.optimize_all_camera_params_driver(args.config, **on)
+        elif args.step == "fix":
+            wf.fix_extrinsic_optim(args.config, ref=args.ref)
 
 
 if __name__ == "__main__":

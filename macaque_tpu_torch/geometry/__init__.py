@@ -1,7 +1,6 @@
 """Batched multi-view geometry on tensors: masked DLT triangulation,
 camera-subset RANSAC, reprojection error and the constrained 3D refinement
-(port of ``macaque_tpu/geometry``; ``refine_points_3d_possible`` waits for
-ROADMAP.md §1 item 7)."""
+(port of ``macaque_tpu/geometry``)."""
 
 from macaque_tpu_torch.geometry.triangulate import (
     triangulate_dlt,
@@ -10,7 +9,8 @@ from macaque_tpu_torch.geometry.triangulate import (
     reprojection_error_mean,
 )
 from macaque_tpu_torch.geometry.ransac import triangulate_ransac
-from macaque_tpu_torch.geometry.refine3d import refine_points_3d, RefineConfig
+from macaque_tpu_torch.geometry.refine3d import (
+    refine_points_3d, refine_points_3d_possible, RefineConfig)
 
 __all__ = [
     "triangulate_dlt",
@@ -19,5 +19,6 @@ __all__ = [
     "reprojection_error_mean",
     "triangulate_ransac",
     "refine_points_3d",
+    "refine_points_3d_possible",
     "RefineConfig",
 ]

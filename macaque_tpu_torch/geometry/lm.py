@@ -22,6 +22,16 @@ the JAX package's, drawn on the host by ``utils/threefry.py`` from
 
 No product here is a ``matmul``: every dot product is an elementwise sum,
 so nothing follows ``torch.backends.cuda.matmul.allow_tf32``.
+
+On a CUDA tensor ``lm_solve`` replays each CGLS sweep and each Hutchinson
+probe from a CUDA graph, captured once an LM step (the linearization
+changes between steps): the same kernels on the same buffers, so the same
+numbers as the eager loop, without the host's launch cost of the two
+reverse passes (several hundred small kernels). The host still reads the
+stop test after every sweep. The whole solve then runs on a side stream,
+since the autograd engine issues a backward kernel on the stream its
+forward ran on, and a capture takes only the kernels of its own stream.
+On the CPU the loop runs eagerly.
 """
 
 from __future__ import annotations
@@ -69,34 +79,61 @@ def lm_solve(resid_fn: Callable, x0: torch.Tensor, cfg: LMConfig = LMConfig(),
     executed, ``ftol_stop``, initial/final ``cost0`` / ``cost``; and for
     the batch ``lm_steps`` and ``cg_sweeps``, the LM steps and CG sweeps
     the loop ran (each once for all lanes), and ``host_reads``, its
-    device-to-host reads.
+    device-to-host reads. On a CUDA ``x0`` the sweeps and the probes are
+    replayed from CUDA graphs.
     """
-    x, info = _lm_solve_batch(resid_fn, x0, cfg)
+    if x0.is_cuda:
+        side = torch.cuda.Stream(x0.device)
+        cur = torch.cuda.current_stream(x0.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            x, info = _lm_solve_batch(resid_fn, x0, cfg, graph=True)
+        cur.wait_stream(side)
+        x.record_stream(cur)
+    else:
+        x, info = _lm_solve_batch(resid_fn, x0, cfg)
     return (x, info) if return_info else x
 
 
-def _cgls(j_vec, jt_vec, r, g, lam, d, run, cfg, counts):
+def _stepper(fn, state: list, graph: bool):
+    """A call that advances ``state``, a list of tensors, by
+    ``state[:] = fn(*state)``. With ``graph`` it replays one CUDA-graph
+    capture of ``fn`` that writes the results into the state's own
+    buffers (which must not alias one another)."""
+    if not graph:
+        def step():
+            state[:] = fn(*state)
+        return step
+
+    def write():
+        for buf, val in zip(state, fn(*state)):
+            buf.copy_(val)
+
+    g = torch.cuda.CUDAGraph()
+    g.capture_begin()
+    try:
+        write()
+    finally:
+        g.capture_end()
+    return g.replay
+
+
+def _cgls(j_vec, jt_vec, r, g, lam, d, run, cfg, counts, graph=False):
     """Solve ``min_p |J p + r|^2 + lam * p^T D p`` lane by lane by CGLS in
     the scaled variable ``y = D^1/2 p`` (JAX ``cgls``). ``run`` (B,) marks
     the lanes whose LM step is live; the others' results are discarded
-    and they take no sweep. Returns p and each lane's sweep count."""
+    and they take no sweep. Returns p and each lane's sweep count.
+    ``graph``: the sweeps are replays of one captured sweep."""
     dinv = torch.rsqrt(d)
     stop2 = (cfg.cg_rtol ** 2) * _vdot(dinv * g, dinv * g)
     lam = lam[:, None]
-    y = torch.zeros_like(g)
-    u = -r
-    s = dinv * (-g)          # A^T u0 - lam * y0 with y0 = 0
-    dd = s
-    gamma = _vdot(s, s)
-    k = torch.zeros_like(gamma, dtype=torch.long)
-    while True:
+
+    def more(k, gamma):
         # the per-lane while condition; a lane whose condition fails keeps
         # its state verbatim (JAX's batched while_loop selects the same)
-        act = run & (k < cfg.cg_iters) & (gamma > stop2)
-        counts["host_reads"] += 1
-        if not bool(act.any()):
-            break
-        counts["cg_sweeps"] += 1
+        return run & (k < cfg.cg_iters) & (gamma > stop2)
+
+    def sweep(y, u, s, dd, gamma, k, act):
         q = j_vec(dinv * dd)
         alpha = gamma / torch.clamp(_vdot(q, q) + lam[:, 0] * _vdot(dd, dd),
                                     min=1e-30)
@@ -107,16 +144,30 @@ def _cgls(j_vec, jt_vec, r, g, lam, d, run, cfg, counts):
         beta = gamma2 / torch.clamp(gamma, min=1e-30)
         dd2 = s2 + beta[:, None] * dd
         a = act[:, None]
-        y = torch.where(a, y2, y)
-        u = torch.where(a, u2, u)
-        s = torch.where(a, s2, s)
-        dd = torch.where(a, dd2, dd)
         gamma = torch.where(act, gamma2, gamma)
         k = k + act.long()
-    return dinv * y, k
+        return (torch.where(a, y2, y), torch.where(a, u2, u),
+                torch.where(a, s2, s), torch.where(a, dd2, dd), gamma, k,
+                more(k, gamma))
+
+    s = dinv * (-g)          # A^T u0 - lam * y0 with y0 = 0
+    gamma = _vdot(s, s)
+    k = torch.zeros_like(gamma, dtype=torch.long)
+    state = [torch.zeros_like(g), -r, s, s.clone(), gamma, k, more(k, gamma)]
+    counts["host_reads"] += 1
+    if bool(state[-1].any()):
+        step = _stepper(sweep, state, graph)
+        while True:
+            counts["cg_sweeps"] += 1
+            step()
+            counts["host_reads"] += 1
+            if not bool(state[-1].any()):
+                break
+    return dinv * state[0], state[5]
 
 
-def _lm_solve_batch(resid_fn: Callable, x0: torch.Tensor, cfg: LMConfig):
+def _lm_solve_batch(resid_fn: Callable, x0: torch.Tensor, cfg: LMConfig,
+                    graph: bool = False):
     B, n = x0.shape
     dev, dt = x0.device, x0.dtype
     x = x0
@@ -151,15 +202,18 @@ def _lm_solve_batch(resid_fn: Callable, x0: torch.Tensor, cfg: LMConfig):
         probes = torch.as_tensor(
             hutchinson_probes(counts["lm_steps"], cfg.diag_probes, n),
             dtype=dt, device=dev)
-        d = torch.zeros_like(x)
+        vb = torch.empty_like(x)
+        acc = [torch.zeros_like(x)]
+        probe = _stepper(lambda d: (d + vb * jt_vec(j_vec(vb)),), acc, graph)
         for v in probes:
-            vb = v.expand(B, n)
-            d = d + vb * jt_vec(j_vec(vb))
-        d = d / cfg.diag_probes
+            vb.copy_(v.expand(B, n))
+            probe()
+        d = acc[0] / cfg.diag_probes
         d = torch.maximum(
             d, 1e-6 * d.abs().amax(-1, keepdim=True) + 1e-30)
 
-        step, cg_k = _cgls(j_vec, jt_vec, r, g, lam, d, live, cfg, counts)
+        step, cg_k = _cgls(j_vec, jt_vec, r, g, lam, d, live, cfg, counts,
+                           graph)
         x_new = x + step
         r_new = resid_fn(x_new)
         f_new = 0.5 * _vdot(r_new, r_new)

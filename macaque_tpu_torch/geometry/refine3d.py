@@ -15,9 +15,9 @@ src/third_party/aniposelib/cameras.py:1116-1270), whose residual model is:
 
 The damped steps are solved matrix-free by CGLS (geometry/lm.py). Every
 function takes a leading batch of independent trajectories (one per
-animal), solved in one LM loop, as the JAX package's ``vmap`` does.
-(The multi-hypothesis ``refine_points_3d_possible`` waits for the
-aniposelib facade, ROADMAP.md §1 item 7.)
+animal), solved in one LM loop, as the JAX package's ``vmap`` does;
+``refine_points_3d_possible``, the multi-hypothesis refinement of the
+aniposelib facade, solves one trajectory.
 """
 
 from __future__ import annotations
@@ -149,6 +149,7 @@ def refine_points_3d_batch(
     constraints_weak=(),
     cfg: RefineConfig = RefineConfig(),
     joint_lengths: Optional[torch.Tensor] = None,
+    scores: Optional[torch.Tensor] = None,
     return_info: bool = False,
 ):
     """Refine several independent trajectories in one LM loop (the JAX
@@ -159,6 +160,7 @@ def refine_points_3d_batch(
     p2ds: (A, C, F, J, 2) observed pixels, NaN = missing.
     p3ds_init: (A, F, J, 3) initial triangulation (NaNs allowed).
     joint_lengths: (Kc+Kw,) held fixed for every lane when given.
+    scores: (A, C, F, J) weights of the reprojection errors, or None.
     Returns (p3ds (A, F, J, 3), joint_lengths (A, Kc+Kw)), plus
     :func:`lm_solve`'s info with ``return_info``.
     """
@@ -201,7 +203,7 @@ def refine_points_3d_batch(
         p3 = x[:, :n_p3d].reshape(-1, F, J, 3)
         jl = fixed.expand(x.shape[0], -1) if fix_lengths else x[:, n_p3d:]
         return _residuals(p3, jl, cam, p2ds, valid, cons, cons_w,
-                          scale_smooth_full, cfg)
+                          scale_smooth_full, cfg, scores)
 
     x, info = lm_solve(
         resid_fn, x0,
@@ -221,15 +223,111 @@ def refine_points_3d(
     constraints_weak=(),
     cfg: RefineConfig = RefineConfig(),
     joint_lengths: Optional[torch.Tensor] = None,
+    scores: Optional[torch.Tensor] = None,
     return_info: bool = False,
 ):
     """Refine one trajectory (reference ``optim_points`` /
     ``optim_points_jointlenfix``): :func:`refine_points_3d_batch` on a
-    batch of one. p2ds (C, F, J, 2); p3ds_init (F, J, 3). Returns
-    (p3ds (F, J, 3), joint_lengths (Kc+Kw,)), plus the LM info."""
-    out = refine_points_3d_batch(cam, p2ds[None], p3ds_init[None],
-                                 constraints, constraints_weak, cfg,
-                                 joint_lengths, return_info=True)
+    batch of one. p2ds (C, F, J, 2); p3ds_init (F, J, 3); scores
+    (C, F, J) or None. Returns (p3ds (F, J, 3), joint_lengths (Kc+Kw,)),
+    plus the LM info."""
+    out = refine_points_3d_batch(
+        cam, p2ds[None], p3ds_init[None], constraints, constraints_weak, cfg,
+        joint_lengths, None if scores is None else scores[None],
+        return_info=True)
     p3, jl, info = out
     info = {k: (v[0] if torch.is_tensor(v) else v) for k, v in info.items()}
     return (p3[0], jl[0], info) if return_info else (p3[0], jl[0])
+
+
+def _smoothed_init(p3ds_init: torch.Tensor, cfg: RefineConfig):
+    """(interpolated (F, J, 3), ``scale_smooth_full``) of one trajectory,
+    as the reference starts its solve (cameras.py:1149-1154)."""
+    F, J, _ = p3ds_init.shape
+    flat = p3ds_init.reshape(F, J * 3)
+    interp = interpolate_nan(flat, dim=0)
+    med = median_filter_1d(interp, 7, dim=0)
+    default_smooth = 1.0 / torch.abs(torch.diff(med, dim=0)).mean()
+    return interp.reshape(F, J, 3), cfg.scale_smooth * default_smooth
+
+
+def _lm_solve_possible(x0, n_p3d, cam, p2ds, constraints, constraints_weak,
+                       scale_smooth_full, cfg: RefineConfig, beta: float,
+                       scores):
+    """The JAX package's ``_lm_solve_possible`` on one lane: 3D points,
+    bone lengths and per-candidate mixing weights in one LM solve, its
+    sweeps replayed from CUDA graphs on the card. Returns (x (n,), the
+    soft-argmax weights (C, F, J, P), NaN where the option was
+    missing)."""
+    C, F, J, P, _ = p2ds.shape
+    n_len = constraints.shape[0] + constraints_weak.shape[0]
+    opt_bad = torch.isnan(p2ds[..., 0])              # (C, F, J, P)
+    all_bad = opt_bad.all(-1)                        # (C, F, J)
+    valid = (~all_bad)[..., None].expand(C, F, J, 2)
+    p2_0 = torch.nan_to_num(p2ds)
+
+    def weights(alphas):
+        a_exp = torch.where(opt_bad, 0.0, torch.exp(beta * alphas))
+        a_sum = torch.where(all_bad, 1.0, a_exp.sum(-1))
+        return a_exp / a_sum[..., None]
+
+    def resid_fn(x):
+        B = x.shape[0]
+        p3 = x[:, :n_p3d].reshape(B, F, J, 3)
+        jl = x[:, n_p3d:n_p3d + n_len]
+        # soft-argmax blend over the P candidate 2D points
+        # (reference cameras.py:1646-1659)
+        a_norm = weights(x[:, n_p3d + n_len:].reshape(B, C, F, J, P))
+        p2_blend = (a_norm[..., None] * p2_0).sum(-2)
+        r_main = _residuals(p3, jl, cam, p2_blend, valid, constraints,
+                            constraints_weak, scale_smooth_full, cfg, scores)
+        # keep the blend decisive: penalize low std over options
+        # (reference cameras.py:1664-1666), masked where all options are
+        # bad; eps inside the sqrt keeps the uniform init differentiable
+        var = ((a_norm - a_norm.mean(-1, keepdim=True)) ** 2).mean(-1)
+        std = torch.sqrt(var + 1e-12)
+        r_alpha = torch.where(all_bad, 0.0, (1.0 - std) * 10.0)
+        return torch.cat([r_main, r_alpha.reshape(B, -1)], -1)
+
+    x = lm_solve(resid_fn, x0[None],
+                 LMConfig(lm_iters=cfg.lm_iters, cg_iters=cfg.cg_iters,
+                          ftol=cfg.ftol))[0]
+    a_norm = weights(x[n_p3d + n_len:].reshape(C, F, J, P))
+    return x, torch.where(opt_bad, torch.nan, a_norm)
+
+
+def refine_points_3d_possible(
+    cam,
+    p2ds: torch.Tensor,
+    p3ds_init: torch.Tensor,
+    constraints=(),
+    constraints_weak=(),
+    cfg: RefineConfig = RefineConfig(),
+    beta: float = 5.0,
+    scores: Optional[torch.Tensor] = None,
+):
+    """Multi-hypothesis 3D refinement (reference ``optim_points_possible``,
+    cameras.py:1417-1513): each (camera, frame, joint) observation comes
+    with P candidate 2D points; per-candidate mixing weights are free
+    parameters blended by a beta-softmax, optimized jointly with the 3D
+    trajectory and bone lengths.
+
+    p2ds: (C, F, J, P, 2) candidate pixels, NaN = missing option.
+    p3ds_init: (F, J, 3) initial trajectory.
+    Returns (p3ds (F, J, 3), alphas_norm (C, F, J, P) — the converged
+    soft-argmax weights, NaN where the option was missing).
+    """
+    dev = p3ds_init.device
+    cons = _cons(constraints, dev)
+    cons_w = _cons(constraints_weak, dev)
+    C, F, J, P, _ = p2ds.shape
+
+    p3ds_intp, scale_smooth_full = _smoothed_init(p3ds_init, cfg)
+    jl0 = initialize_joint_lengths(p3ds_intp, cons, cons_w)
+    alphas0 = p3ds_init.new_zeros(C * F * J * P)
+    x0 = torch.nan_to_num(torch.cat([p3ds_intp.reshape(-1), jl0, alphas0]))
+
+    x, a_norm = _lm_solve_possible(x0, F * J * 3, cam, p2ds, cons, cons_w,
+                                   scale_smooth_full, cfg, float(beta),
+                                   scores)
+    return x[: F * J * 3].reshape(F, J, 3), a_norm

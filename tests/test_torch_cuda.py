@@ -1080,3 +1080,181 @@ def test_device_tracker_on_the_card_matches_the_cpu(card, dtype, atol):
     assert torch.equal(tg, tc) and (tc >= 0).sum() > 50
     np.testing.assert_array_equal(torch.isnan(bg).numpy(), torch.isnan(bc).numpy())
     np.testing.assert_allclose(bg.numpy(), bc.numpy(), rtol=0, atol=atol)
+
+
+# ------------------------------------------------------------ calibration
+
+CALIB_SOLVERS = ("calibrate_intrinsics_omnidir", "calibrate_intrinsics_fisheye",
+                 "bundle_adjust_extrinsics", "bundle_adjust_fisheye",
+                 "bundle_adjust_full")
+
+
+def _calib_case(fn):
+    import calib_cases as cc
+
+    if fn == "calibrate_intrinsics_omnidir":
+        obj, img, kw = cc.intrinsic_scene()
+        return (obj, img), kw
+    if fn == "calibrate_intrinsics_fisheye":
+        obj, img, kw = cc.fisheye_intrinsic_scene()
+        return (obj, img), kw
+    scene = {"bundle_adjust_extrinsics": cc.extrinsic_scene,
+             "bundle_adjust_fisheye": cc.fisheye_ba_scene,
+             "bundle_adjust_full": cc.full_scene}[fn]
+    return scene()[0], {}
+
+
+@pytest.mark.parametrize("fn", CALIB_SOLVERS)
+def test_calibration_solver_on_the_card_matches_the_cpu(card, fn):
+    """Each solver runs on the card when given no device, and agrees with
+    the CPU at the tier-1 tests' short budget (15 LM iterations of 2 CG
+    sweeps), float64: equal counts, outputs within 1e-8 of their largest
+    value (the card's reductions sum in another order: the noise-free full
+    BA's distortion parted by 1.07e-9 in the first card run)."""
+    from macaque_tpu_torch.calib import bundle
+    from macaque_tpu_torch.geometry.lm import LMConfig
+
+    args, kw = _calib_case(fn)
+    cfg = LMConfig(lm_iters=15, cg_iters=2, ftol=1e-12)
+    got = {}
+    for dev in (None, "cpu"):
+        info = {}
+        on = {} if dev is None else {"device": dev}
+        out = getattr(bundle, fn)(*args, **kw, cfg=cfg, dtype=torch.float64,
+                                  info=info, **on)
+        got[dev] = (out, info)
+    (og, ig), (oc, ic) = got[None], got["cpu"]
+    assert (ig["lm_iters"], ig["cg_iters"]) == (ic["lm_iters"], ic["cg_iters"])
+    for g, c in zip(og, oc):
+        g, c = np.asarray(g, float), np.asarray(c, float)
+        assert np.abs(g - c).max() <= 1e-8 * max(np.abs(c).max(), 1e-30)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_omnidir_intrinsics_default_budget_on_the_card(card, dtype):
+    """The omnidir fit of tests/test_calib.py's 12-view board at its
+    default budget (300 LM iterations of up to 150 CG sweeps, ~45,000
+    sweeps), on the card in each precision: the JAX test's bound (rms
+    < 0.1 px, twice the noise). Neither package converges within the
+    budget, so the CPU parity test holds a 40-iteration budget
+    (tests/test_torch_calib_intrinsics.py)."""
+    from macaque_tpu_torch.calib import bundle
+
+    (obj, img), kw = _calib_case("calibrate_intrinsics_omnidir")
+    info = {}
+    out = bundle.calibrate_intrinsics_omnidir(obj, img, **kw, dtype=dtype,
+                                              info=info)
+    assert info["lm_iters"] == 300
+    assert out[-1] < 0.1, out[-1]
+
+
+def _eager_lm_solve(resid_fn, x0, cfg=None, return_info=False):
+    """``lm_solve`` with its loop eager on the card (the solver's private
+    ``_lm_solve_batch`` without graphs), for the graph-replay tests."""
+    from macaque_tpu_torch.geometry import lm
+
+    x, info = lm._lm_solve_batch(resid_fn, x0, cfg or lm.LMConfig())
+    return (x, info) if return_info else x
+
+
+def test_lm_solve_graph_replays_equal_eager(card, monkeypatch):
+    """``lm_solve`` on the card replays the CGLS sweeps and the Hutchinson
+    probes from CUDA graphs: the same kernels on the same buffers, so the
+    same bits as the eager loop, and the same counts."""
+    from macaque_tpu_torch.calib import bundle
+    from macaque_tpu_torch.geometry import lm
+
+    args, kw = _calib_case("bundle_adjust_full")
+    got = []
+    for eager in (True, False):
+        with monkeypatch.context() as m:
+            if eager:
+                m.setattr(bundle, "lm_solve", _eager_lm_solve)
+            info = {}
+            out = bundle.bundle_adjust_full(
+                *args, cfg=lm.LMConfig(lm_iters=8, cg_iters=40, ftol=1e-12),
+                device=card, dtype=torch.float32, info=info)
+        got.append((out, info))
+    (oe, ie), (og, ig) = got
+    assert {k: ie[k] for k in ("lm_steps", "cg_sweeps", "host_reads")} == \
+        {k: ig[k] for k in ("lm_steps", "cg_sweeps", "host_reads")}
+    for e, g in zip(oe, og):
+        np.testing.assert_array_equal(np.asarray(e), np.asarray(g))
+
+
+def _refine_case(card, n_animal=2, n_frame=48, seed=4):
+    """A step-4-like refinement on the card, float32: the synthetic rig's
+    4 cameras, 2 px of keypoint noise with 10 % missing, the truth moved
+    by 20 mm as the start, the macaque skeleton's strong constraints."""
+    from macaque_tpu_torch.cameras.dispatch import project_points
+    from macaque_tpu_torch.core.config import (
+        MACAQUE_CONSTRAINTS, constraint_indices)
+    from macaque_tpu_torch.tools.synthetic import (
+        make_test_rig, simulate_scene)
+
+    rng = np.random.default_rng(seed)
+    rig = make_test_rig(4, seed)
+    kp3d = simulate_scene(n_animal, n_frame, seed=seed)
+    A, F, J, _ = kp3d.shape
+    cam = rig.camera(card, torch.float32)
+    pts = torch.as_tensor(kp3d.reshape(A, 1, F * J, 3), device=card,
+                          dtype=torch.float32)
+    pix = project_points(cam, pts).reshape(A, rig.n_cam, F, J, 2)
+    pix = pix + torch.as_tensor(rng.normal(0, 2.0, tuple(pix.shape)),
+                                device=card, dtype=torch.float32)
+    miss = torch.as_tensor(rng.uniform(size=tuple(pix.shape[:-1])) < 0.1,
+                           device=card)
+    pix = torch.where(miss[..., None], torch.nan, pix)
+    init = torch.as_tensor(kp3d + rng.normal(0, 20.0, kp3d.shape),
+                           device=card, dtype=torch.float32)
+    return cam, pix, init, constraint_indices(MACAQUE_CONSTRAINTS)
+
+
+def test_refine_graph_replays_equal_eager(card, monkeypatch):
+    """Step 4's batched refinement replays its sweeps from CUDA graphs on
+    the card too: bit for bit the eager loop's points and lengths, with
+    the same counts, on a two-animal scene at its production budget."""
+    from macaque_tpu_torch.geometry import refine3d
+
+    cam, p2d, p3d, cons = _refine_case(card)
+    got = []
+    for eager in (True, False):
+        with monkeypatch.context() as m:
+            if eager:
+                m.setattr(refine3d, "lm_solve", _eager_lm_solve)
+            got.append(refine3d.refine_points_3d_batch(
+                cam, p2d, p3d, cons, (), refine3d.RefineConfig(),
+                return_info=True))
+    (pe, je, ie), (pg, jg, ig) = got
+    for k in ("lm_steps", "cg_sweeps", "host_reads"):
+        assert ie[k] == ig[k], k
+    assert torch.equal(pe, pg) and torch.equal(je, jg)
+
+
+def test_camera_group_bundle_adjust_stays_on_the_card(card, monkeypatch):
+    """``CameraGroup(rig)`` (no device) works on the card: its cameras and
+    every solve of ``bundle_adjust`` live there."""
+    import calib_cases as cc
+
+    from macaque_tpu_torch.calib import bundle
+    from macaque_tpu_torch.cameras.rig import CameraRig
+    from macaque_tpu_torch.compat.aniposelib import CameraGroup
+
+    K, xi, D, rvec, tvec = cc.make_rig(3, seed=0)
+    g = CameraGroup(CameraRig(camera_ids=["0", "1", "2"], K=K, xi=xi, D=D,
+                              rvec=rvec, tvec=tvec, size=(2048, 1536)))
+    assert g.device.type == "cuda" and g._cam().K.is_cuda
+    rng = np.random.default_rng(3)
+    p2d = g.project(rng.normal(0, 220, (120, 3)))
+    g.cameras[1].set_rotation(g.cameras[1].get_rotation() + 0.01)
+    seen = []
+    solve = bundle.lm_solve
+
+    def spy(resid, x0, *a, **k):
+        seen.append(x0.device)
+        return solve(resid, x0, *a, **k)
+
+    monkeypatch.setattr(bundle, "lm_solve", spy)
+    err = g.bundle_adjust(p2d, verbose=False)
+    assert seen and all(d.type == "cuda" for d in seen)
+    assert err < 1.0 and g._cam().K.is_cuda
