@@ -86,16 +86,26 @@ Phases, one line each with elapsed seconds:
                solver's wall, LM steps, CG sweeps and host reads; (a) card
                against CPU at the tests' short budget, (b) the production
                budgets in float32 and float64 against the truth, (c) no
-               kernel launch.
-Steps 2-4, the tracker, the trainers and the calibration run no
-hand-written kernel (the JAX package runs them as plain XLA); a step phase
-runs the step phases before it, on one scene.
+               kernel launch;
+ 12. session - the anipose session tools' array core
+               (``tools/session.py``: ``train_autoencoder``,
+               ``filter_pose_2d_arrays`` with medfilt -> viterbi ->
+               autoencoder, ``triangulate_arrays`` with RANSAC and the
+               refinement under the macaque constraints) on one recording
+               of the reference rig (8 omnidir cameras at 2048x1536, one
+               animal's 17 joints over 1,440 frames); each call's wall;
+               (a) card against CPU in float64 on 240 frames at the tests'
+               short budget, (b) float32 against the truth, the refinement
+               below RANSAC alone, (c) no kernel launch.
+Steps 2-4, the tracker, the trainers, the calibration and the session
+tools run no hand-written kernel (the JAX package runs them as plain XLA
+or host code); a step phase runs the step phases before it, on one scene.
 The second-to-last line is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``. Any failed phase raises, so the
 script exits non-zero and prints no result; so it does without a CUDA
 device. ``--phases device,build,kernels`` runs a subset (``device,step4``
 steps 2-4 alone, ``device,tracker,train`` the tracker and the trainers,
-``device,calib`` the calibration);
+``device,calib`` the calibration, ``device,session`` the session tools);
 ``--phases device,build,kernels,main,profile`` adds a torch.profiler pass
 over one chunk (device time by kernel, idle share, a chrome trace under
 chiprun_out/).
@@ -2489,6 +2499,18 @@ BOARD_NOISE, TRACE_NOISE = 0.1, 0.2
 FISHEYE_D = np.array([-0.015, 0.006, 0.0, 0.0])
 
 
+def full_size_rig(n_cam, seed=0):
+    """``n_cam`` of the synthetic ring's omnidir cameras at the reference
+    rig's 2048x1536."""
+    from macaque_tpu_torch.tools.synthetic import make_test_rig
+
+    rig = make_test_rig(n_cam, seed)
+    rig.K = rig.K.copy()
+    rig.K[:, :2] *= CALIB_SCALE
+    rig.size = (2048, 1536)
+    return rig
+
+
 def calib_scene(sizes, seed=0):
     """The phase's numpy inputs, made from ``seed`` with the port's float64
     projections on the CPU."""
@@ -2497,16 +2519,13 @@ def calib_scene(sizes, seed=0):
         FisheyeCamera, fisheye_project)
     from macaque_tpu_torch.cameras.omnidir import (
         OmnidirCamera, omnidir_project)
-    from macaque_tpu_torch.tools.synthetic import make_test_rig, simulate_scene
+    from macaque_tpu_torch.tools.synthetic import simulate_scene
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float64))
 
     rng = np.random.default_rng(seed)
-    rig = make_test_rig(sizes["cams"], seed)
-    rig.K = rig.K.copy()
-    rig.K[:, :2] *= CALIB_SCALE
-    rig.size = (2048, 1536)
+    rig = full_size_rig(sizes["cams"], seed)
     V = sizes["views"]
     board = chessboard_object_points(9, 6, 23.0)
     rv = np.array([np.pi, 0, 0]) + rng.uniform(-0.4, 0.4, (V, 3))
@@ -2853,6 +2872,222 @@ def _perturbed(rig, trace):
     return out
 
 
+# one anipose recording: a minute at 24 fps of one animal's 17 joints in
+# the reference rig's 8 cameras at 2048x1536; 2 px noise, 10 % of the
+# detections dropped, camera 0's wrists and ankles swapped left for right
+# in every other 60-frame stretch. (a) holds the first 240 frames card
+# against CPU.
+SESSION_FULL = {"cams": 8, "frames": 1440, "held": 240}
+SESSION_NOISE, SESSION_DROP = 2.0, 0.1
+SESSION_FILTER = {"type": ["medfilt", "viterbi", "autoencoder"],
+                  "medfilt": 13, "offset_threshold": 25,
+                  "score_threshold": 0.05, "spline": True, "n_back": 5}
+
+
+def session_scene(sizes, seed=0):
+    """The phase's numpy inputs: the rig, the truth (F, 17, 3) and each
+    camera's detections (C, F, 17, 2) with scores (C, F, 17)."""
+    from macaque_tpu_torch.cameras.omnidir import omnidir_project
+    from macaque_tpu_torch.core.config import MACAQUE_BODYPARTS
+    from macaque_tpu_torch.tools.synthetic import simulate_scene
+
+    rng = np.random.default_rng(seed)
+    rig = full_size_rig(sizes["cams"], seed)
+    kp3d = simulate_scene(1, sizes["frames"], seed=seed)[0]
+    F, J, _ = kp3d.shape
+    pix = omnidir_project(rig.omni("cpu", torch.float64),
+                          torch.as_tensor(kp3d.reshape(-1, 3))).numpy()
+    pix = pix.reshape(rig.n_cam, F, J, 2)
+    pix += rng.normal(0, SESSION_NOISE, pix.shape)
+    scores = rng.uniform(0.6, 1.0, pix.shape[:3])
+    drop = rng.uniform(size=scores.shape) < SESSION_DROP
+    pix[drop] = np.nan
+    scores[drop] = 0.02
+    swap = (np.arange(F) // 60) % 2 == 1
+    for part in ("wrist", "ankle"):
+        i = MACAQUE_BODYPARTS.index("left_" + part)
+        j = MACAQUE_BODYPARTS.index("right_" + part)
+        cam0 = pix[0]
+        cam0[np.ix_(swap, [i, j])] = cam0[np.ix_(swap, [j, i])]
+    return rig, kp3d, pix, scores
+
+
+def session_tri_cfg():
+    """The pipeline's triangulation settings (the ``config.toml`` step 4
+    writes), with RANSAC and the refinement on; the macaque constraints."""
+    import dataclasses
+
+    from macaque_tpu_torch.core.config import (
+        MACAQUE_CONSTRAINTS, MACAQUE_CONSTRAINTS_WEAK, PipelineConfig,
+        constraint_indices)
+
+    cfg = dataclasses.asdict(PipelineConfig().triangulation)
+    cfg.update(ransac=True, optim=True)
+    return cfg, (constraint_indices(MACAQUE_CONSTRAINTS),
+                 constraint_indices(MACAQUE_CONSTRAINTS_WEAK))
+
+
+def session_group(rig, device, dtype, short=False):
+    """The facade's group; ``short`` holds its refinement to the tests'
+    short budget."""
+    from macaque_tpu_torch.compat.aniposelib import CameraGroup
+
+    class Short(CameraGroup):
+        def _refine_config(self, kwargs):
+            return super()._refine_config(kwargs)._replace(
+                lm_iters=CALIB_SHORT[0], cg_iters=CALIB_SHORT[1])
+
+    return (Short if short else CameraGroup)(rig, device, dtype)
+
+
+def session_train(scores, path, device, dtype):
+    """``train_autoencoder`` on every camera's scores, saved to ``path``;
+    returns (weights, seconds)."""
+    from macaque_tpu_torch.filters.autoencoder import (
+        save_autoencoder, train_autoencoder)
+
+    calib_sync(device)
+    t = time.perf_counter()
+    params = train_autoencoder(scores.reshape(-1, scores.shape[-1]),
+                               score_threshold=SESSION_FILTER["score_threshold"],
+                               device=device, dtype=dtype)
+    calib_sync(device)
+    wall = time.perf_counter() - t
+    save_autoencoder(params, path)
+    return params, wall
+
+
+def session_run(rig, pix, scores, ae_path, device, dtype, short=False):
+    """The session's array core: each camera through
+    ``filter_pose_2d_arrays`` (medfilt -> viterbi -> autoencoder), then
+    ``triangulate_arrays`` (RANSAC, then the refinement with the macaque
+    constraints). Returns (filtered points, filtered scores, the
+    triangulation's four outputs, {call: seconds})."""
+    from macaque_tpu_torch.tools.session import (
+        filter_pose_2d_arrays, triangulate_arrays)
+
+    fcfg = dict(SESSION_FILTER, autoencoder_path=ae_path)
+    tri_cfg, (cons, weak) = session_tri_cfg()
+    walls = {}
+    calib_sync(device)
+    t = time.perf_counter()
+    filt = [filter_pose_2d_arrays(fcfg, pix[c], scores[c], device, dtype)
+            for c in range(rig.n_cam)]
+    calib_sync(device)
+    walls["filter_pose_2d_arrays"] = time.perf_counter() - t
+    pts = np.stack([p for p, _ in filt])
+    scs = np.stack([s for _, s in filt])
+    t = time.perf_counter()
+    out = triangulate_arrays(session_group(rig, device, dtype, short), pts,
+                             scs, tri_cfg, cons, weak)
+    calib_sync(device)
+    walls["triangulate_arrays"] = time.perf_counter() - t
+    return pts, scs, out, walls
+
+
+def session_rel(a, b):
+    """Largest |a - b| over the largest |b|, and whether the NaNs agree."""
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    same = np.array_equal(np.isnan(a), np.isnan(b))
+    scale = max(float(np.nanmax(np.abs(b))), 1e-30)
+    return float(np.nanmax(np.abs(a - b))) / scale, same
+
+
+def check_session_devices(rig, pix, scores, root, dev, n_held):
+    """Check (a): the card against the CPU, both float64, on the first
+    ``n_held`` frames, with the refinement at the tests' short budget: the
+    autoencoder's weights, the filtered points and scores and the
+    triangulation's outputs within 1e-8 of their largest value, NaNs in
+    the same places, the Viterbi picks equal."""
+    f64 = torch.float64
+    pix, scores = pix[:, :n_held], scores[:, :n_held]
+    runs, weights = {}, {}
+    for d in (dev, "cpu"):
+        path = os.path.join(root, f"ae_{torch.device(d).type}.npz")
+        weights[d], t_ae = session_train(scores, path, d, f64)
+        runs[d] = session_run(rig, pix, scores, path, d, f64, short=True)
+        log(f"session (a) {d} float64, {n_held} frames: train_autoencoder "
+            f"{t_ae:.3f}s, " + ", ".join(f"{k} {w:.3f}s"
+                                         for k, w in runs[d][3].items()))
+    worst_w = max(session_rel(a.cpu(), b)[0]
+                  for a, b in zip(weights[dev], weights["cpu"]))
+    card, host = runs[dev], runs["cpu"]
+    picks = np.array_equal(card[0], host[0])
+    rels = [session_rel(a, b) for a, b in zip([card[1], *card[2]],
+                                              [host[1], *host[2]])]
+    worst = max(r for r, _ in rels)
+    same = all(s for _, s in rels)
+    log(f"session (a) card against CPU, float64, {CALIB_SHORT[0]} LM "
+        f"iterations of {CALIB_SHORT[1]} CG sweeps: autoencoder weights "
+        f"rel {worst_w:.3e}; filtered points equal {picks}; filtered scores "
+        f"and triangulation (points, errors, ncams, scores) rel {worst:.3e},"
+        f" NaN patterns equal {same}")
+    if not (worst_w <= 1e-8 and picks and worst <= 1e-8 and same):
+        raise AssertionError("session (a): the card differs from the CPU")
+
+
+def phase_session(sizes=SESSION_FULL, dev="cuda"):
+    """The anipose session tools' array core on the card at one
+    recording's size, no hand-written kernel on it: ``train_autoencoder``,
+    ``filter_pose_2d_arrays`` and ``triangulate_arrays`` (the work of
+    ``filter-2d``, ``train-autoencoder`` and ``triangulate-session``
+    without their pandas and h5py files). Checks (a) card against CPU at the
+    short budget, (b) the production run in float32 against the truth: the
+    refinement's median 3D error below RANSAC's alone, (c) no kernel
+    launched during the phase."""
+    import tempfile
+
+    from macaque_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    before = dict(kernels.LAUNCHES)
+    rig, kp3d, pix, scores = session_scene(sizes)
+    F, J, _ = kp3d.shape
+    log(f"session: scene of {rig.n_cam} cameras at {rig.size[0]}x"
+        f"{rig.size[1]}, {F} frames of {J} joints, "
+        f"{int(np.isnan(pix[..., 0]).sum())} detections dropped "
+        f"({time.perf_counter() - t0:.1f}s)")
+    with tempfile.TemporaryDirectory(dir=REPO,
+                                     prefix=".chip_smoke_session_") as root:
+        check_session_devices(rig, pix, scores, root, dev, sizes["held"])
+        path = os.path.join(root, "ae.npz")
+        _, t_ae = session_train(scores, path, dev, torch.float32)
+        pts, scs, (p3d, err, ncams, sc3d), walls = session_run(
+            rig, pix, scores, path, dev, torch.float32)
+    tri_cfg, _ = session_tri_cfg()
+    thr = pts.copy()
+    thr[scs < tri_cfg["score_threshold"]] = np.nan
+    g = session_group(rig, dev, torch.float32)
+    t = time.perf_counter()
+    ran = g.triangulate_ransac(thr.reshape(rig.n_cam, -1, 2),
+                               min_cams=2)[0].reshape(F, J, 3)
+    t_ran = time.perf_counter() - t
+    dlt = g.triangulate(thr.reshape(rig.n_cam, -1, 2)).reshape(F, J, 3)
+
+    def median_mm(p):
+        return float(np.nanmedian(np.linalg.norm(p - kp3d, axis=-1)))
+
+    e_opt, e_ran, e_dlt = median_mm(p3d), median_mm(ran), median_mm(dlt)
+    finite = float(np.isfinite(p3d[..., 0]).mean())
+    log(f"session (b) float32: train_autoencoder {t_ae:.3f}s, "
+        + ", ".join(f"{k} {w:.3f}s" for k, w in walls.items())
+        + f" ({rig.n_cam} cameras); triangulate_ransac alone {t_ran:.3f}s; "
+        f"median 3D error against the truth: ransac + optim {e_opt:.3f} mm "
+        f"on {finite:.3f} of the joints, ransac alone {e_ran:.3f} mm, "
+        f"DLT {e_dlt:.3f} mm; median reprojection error "
+        f"{float(np.nanmedian(err)):.3f} px, median ncams "
+        f"{float(np.nanmedian(ncams)):.1f}")
+    shapes = (p3d.shape == (F, J, 3) and err.shape == ncams.shape
+              == sc3d.shape == (F, J) and pts.shape == pix.shape)
+    if not (shapes and finite > 0.9 and e_opt < e_ran):
+        raise AssertionError("session (b): the refinement's points are off")
+    if kernels.LAUNCHES != before:
+        raise AssertionError(f"session (c): kernels launched: {before} -> "
+                             f"{kernels.LAUNCHES}")
+    log(f"session (c): kernels.LAUNCHES unchanged; phase "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
 def phase_profile(perception, store, T):
     """One 16-frame chunk of process_camera under torch.profiler: device
     time by kernel, and device busy time against the wall clock."""
@@ -2887,7 +3122,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="device,build,kernels,main,step2,step3,step4,"
-                            "pipeline,tracker,train,calib")
+                            "pipeline,tracker,train,calib,session")
     phases = ap.parse_args(argv).phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2966,6 +3201,9 @@ def main(argv=None) -> int:
     if "calib" in phases:
         torch.cuda.empty_cache()
         phase_calib()
+    if "session" in phases:
+        torch.cuda.empty_cache()
+        phase_session()
     launches = {}
     if "main" in phases:
         from macaque_tpu_torch import kernels

@@ -1,19 +1,45 @@
 """Umbrella CLI of the port: ``python -m macaque_tpu_torch <command>``.
 
-The JAX package's ``python -m macaque_tpu`` subcommands that drive the
-pipeline, with the same arguments: ``step1``, ``step2``, ``step3``,
-``step4``, ``render``, ``pipeline`` and ``validate``; and the calibration's
-``label-cage`` and ``calibrate`` (every ``--step``), the latter with
-``--device`` last (the card when not given). Every stage runs on the card.
+The JAX package's ``python -m macaque_tpu`` subcommands, with the same
+arguments: the pipeline's ``step1``, ``step2``, ``step3``, ``step4``,
+``render``, ``pipeline`` and ``validate``; the analysis' ``angles`` and
+``plots``; the anipose session tools (``triangulate-session``,
+``calibrate-session``, ``filter-2d``, ``filter-3d``, ``train-autoencoder``,
+``project-2d``, ``summarize``, ``session-angles``, ``tracking-errors``,
+``label-videos``, ``label-3d``, ``label-proj``, ``label-combined``,
+``label-filter-compare``, ``convert-videos``, ``calibration-errors``,
+``extract-frames``, ``pose-videos`` and ``report``); and the calibration's
+``label-cage`` and ``calibrate`` (every ``--step``). The subcommands whose
+work reaches a tensor take ``--device`` last (the card when not given;
+``cpu`` for the CPU). Every stage runs on the card.
 The calibration's ``config.yaml`` and ``.h5`` files are read with PyYAML
-and h5py; ``render`` draws with cv2, and the calibration detects boards
-and markers with cv2.
+and h5py; ``render``, the session tools' videos and the calibration's
+board and marker detection use cv2; the session tools' tables use pandas
+and h5py, their plots matplotlib.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+
+# the session subcommands in the JAX CLI's order, and those whose work
+# reaches a tensor (they take ``--device``)
+SESSION_COMMANDS = (
+    "triangulate-session", "project-2d", "label-videos", "session-angles",
+    "tracking-errors", "label-3d", "label-proj", "label-combined",
+    "convert-videos", "calibration-errors", "report", "filter-2d",
+    "filter-3d", "train-autoencoder", "label-filter-compare",
+    "calibrate-session")
+ON_DEVICE = ("triangulate-session", "project-2d", "tracking-errors",
+             "calibration-errors", "filter-2d", "train-autoencoder",
+             "calibrate-session", "extract-frames", "pose-videos")
+
+
+def add_device(sp, what="work"):
+    sp.add_argument("--device", default=None,
+                    help=f"torch device of the {what} (the card when not "
+                         "given; 'cpu' for the CPU)")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -45,6 +71,54 @@ def parser() -> argparse.ArgumentParser:
     sp.add_argument("gt_pickle")
     sp.add_argument("--threshold", type=float, default=400.0)
 
+    sp = sub.add_parser("angles")
+    sp.add_argument("kp3d_pickle")
+    sp.add_argument("--out", default="angles.npz")
+
+    sp = sub.add_parser("plots")
+    sp.add_argument("kp3d_pickle")
+    sp.add_argument("--out", default="./plots")
+    sp.add_argument("--fps", type=float, default=24.0)
+
+    # anipose-style session workflows (project config.toml driven)
+    for name in SESSION_COMMANDS:
+        sp = sub.add_parser(name)
+        sp.add_argument("--config", default="config.toml",
+                        help="anipose project config.toml")
+        if name == "tracking-errors":
+            sp.add_argument("--labeled", default="labeled-data")
+        if name == "report":
+            sp.add_argument("--out", default=None,
+                            help="report output dir (default "
+                            "<project>/report)")
+        if name in ON_DEVICE:
+            add_device(sp)
+
+    sp = sub.add_parser(
+        "extract-frames", help="mine worst/best/random frames for "
+        "relabeling (anipose extract_frames)")
+    sp.add_argument("--config", default="config.toml")
+    sp.add_argument("--mode", default="bad",
+                    choices=("bad", "good", "random"))
+    sp.add_argument("--num", type=int, default=250)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--spacing", type=int, default=10,
+                    help="min frames between picks of one video")
+    add_device(sp, "reprojections")
+
+    sp = sub.add_parser(
+        "pose-videos", help="run the 2D pose stack over raw session "
+        "videos missing pose-2d files (anipose pose_videos)")
+    sp.add_argument("--config", default="config.toml")
+    sp.add_argument("--weights", default=None)
+    add_device(sp, "networks")
+
+    sp = sub.add_parser("summarize")
+    sp.add_argument("what", choices=("pose3d", "pose3d-filtered",
+                                     "pose2d", "pose2d-filtered",
+                                     "angles", "errors"))
+    sp.add_argument("--config", default="config.toml")
+
     sp = sub.add_parser(
         "label-cage", help="interactively click cage keypoints per "
         "camera (needs a display; writes cagepoints_annotation.h5)")
@@ -65,9 +139,7 @@ def parser() -> argparse.ArgumentParser:
     sp.add_argument("--fps", type=float, default=24.0)
     sp.add_argument("--ref", type=int, default=0,
                     help="reference camera for the 'fix' step")
-    sp.add_argument("--device", default=None,
-                    help="torch device of the solvers (the card when not "
-                         "given; 'cpu' for the CPU)")
+    add_device(sp, "solvers")
     return p
 
 
@@ -129,6 +201,25 @@ def main(argv=None):
         r = validate_kp3d_file(args.kp3d_pickle, args.gt_pickle,
                                args.threshold)
         print(r)
+    elif args.cmd == "angles":
+        import numpy as np
+
+        from macaque_tpu_torch.pipeline.artifacts import read_pickle
+        from macaque_tpu_torch.tools.angles import compute_angles
+
+        kp3d = np.asarray(read_pickle(args.kp3d_pickle)["kp3d"])
+        np.savez(args.out, **compute_angles(kp3d))
+        print(f"wrote {args.out}")
+    elif args.cmd == "plots":
+        from macaque_tpu_torch.tools.plots import plot_all
+
+        for p in plot_all(args.kp3d_pickle, args.out, args.fps):
+            print(f"wrote {p}")
+    elif args.cmd in SESSION_COMMANDS + ("extract-frames", "pose-videos",
+                                         "summarize"):
+        for files in session_command(args).values():
+            for f in files or ():
+                print(f"wrote {f}")
     elif args.cmd == "label-cage":
         from macaque_tpu_torch.calib.labeler import label_cage_keypoints
 
@@ -160,6 +251,72 @@ def main(argv=None):
             wf.optimize_all_camera_params_driver(args.config, **on)
         elif args.step == "fix":
             wf.fix_extrinsic_optim(args.config, ref=args.ref)
+
+
+def session_command(args) -> dict:
+    """One session subcommand: {session folders: files written}."""
+    from macaque_tpu_torch.tools import session as ses
+    from macaque_tpu_torch.tools import session_extras as sx
+
+    config = ses.load_session_config(args.config)
+    on = {"device": args.device} if args.cmd in ON_DEVICE else {}
+    if args.cmd == "triangulate-session":
+        return ses.triangulate_all(config, **on)
+    if args.cmd == "filter-2d":
+        return ses.filter_pose_2d_all(config, **on)
+    if args.cmd == "filter-3d":
+        return ses.filter_pose_3d_all(config)
+    if args.cmd == "train-autoencoder":
+        return {(): [ses.train_autoencoder_project(config, **on)]}
+    if args.cmd == "label-filter-compare":
+        return sx.label_filter_compare_all(config)
+    if args.cmd == "calibrate-session":
+        return {k: ([v] if v else [])
+                for k, v in ses.calibrate_all(config, **on).items()}
+    if args.cmd == "project-2d":
+        return ses.project_2d_all(config, **on)
+    if args.cmd == "label-videos":
+        return ses.label_videos_all(config)
+    if args.cmd == "session-angles":
+        return ses.angles_all(config)
+    if args.cmd == "label-3d":
+        return sx.label_videos_3d_all(config)
+    if args.cmd == "label-proj":
+        return sx.label_videos_proj_all(config)
+    if args.cmd == "label-combined":
+        return sx.label_combined_all(config)
+    if args.cmd == "convert-videos":
+        return sx.convert_videos_all(config)
+    if args.cmd == "calibration-errors":
+        return sx.calibration_errors_all(config, **on)
+    if args.cmd == "extract-frames":
+        return {(): sx.extract_frames(config, mode=args.mode,
+                                      num_frames_pick=args.num,
+                                      seed=args.seed, spacing=args.spacing,
+                                      **on)}
+    if args.cmd == "pose-videos":
+        from macaque_tpu_torch.pipeline.weights import build_torch_perception
+
+        weights = args.weights or os.environ.get("MACAQUE_TPU_WEIGHTS",
+                                                 "./model")
+        return sx.pose_videos_all(config,
+                                  build_torch_perception(weights, **on))
+    if args.cmd == "report":
+        from macaque_tpu_torch.tools.report import generate_report
+
+        return {(): [generate_report(config, args.out)]}
+    if args.cmd == "tracking-errors":
+        return {(): [ses.get_tracking_errors(config, labeled_dir=args.labeled,
+                                             **on)]}
+    fn = {
+        "pose3d": ses.summarize_pose3d,
+        "pose3d-filtered": ses.summarize_pose3d_filtered,
+        "pose2d": ses.summarize_pose2d,
+        "pose2d-filtered": ses.summarize_pose2d_filtered,
+        "angles": ses.summarize_angles,
+        "errors": ses.summarize_errors,
+    }[args.what]
+    return {(): [fn(config)]}
 
 
 if __name__ == "__main__":

@@ -1258,3 +1258,105 @@ def test_camera_group_bundle_adjust_stays_on_the_card(card, monkeypatch):
     err = g.bundle_adjust(p2d, verbose=False)
     assert seen and all(d.type == "cuda" for d in seen)
     assert err < 1.0 and g._cam().K.is_cuda
+
+
+def _session_case(tmp_path, n_frame=48, seed=2):
+    """One animal's 17 joints in the synthetic rig's 4 cameras: 0.5 px of
+    noise, 10 % of the detections dropped, and an autoencoder trained on
+    the CPU (float64) for the filter chain."""
+    from macaque_tpu_torch.cameras.omnidir import omnidir_project
+    from macaque_tpu_torch.filters.autoencoder import (
+        save_autoencoder, train_autoencoder)
+    from macaque_tpu_torch.tools.synthetic import (
+        make_test_rig, simulate_scene)
+
+    rng = np.random.default_rng(seed)
+    rig = make_test_rig(4, seed)
+    kp3d = simulate_scene(1, n_frame, seed=seed)[0]
+    F, J, _ = kp3d.shape
+    pix = omnidir_project(rig.omni("cpu", torch.float64),
+                          torch.as_tensor(kp3d.reshape(-1, 3))).numpy()
+    pix = pix.reshape(rig.n_cam, F, J, 2) + rng.normal(0, 0.5, (4, F, J, 2))
+    scores = rng.uniform(0.6, 1.0, (4, F, J))
+    drop = rng.uniform(size=scores.shape) < 0.1
+    pix[drop], scores[drop] = np.nan, 0.02
+    path = str(tmp_path / "ae.npz")
+    save_autoencoder(train_autoencoder(scores.reshape(-1, J), 0.05,
+                                       epochs=50, device="cpu",
+                                       dtype=torch.float64), path)
+    fcfg = {"type": ["medfilt", "viterbi", "autoencoder"], "medfilt": 7,
+            "n_back": 3, "autoencoder_path": path}
+    tri = {"ransac": True, "optim": True, "score_threshold": 0.5,
+           "scale_smooth": 3.0, "scale_length": 5.0, "scale_length_weak": 2.0,
+           "reproj_error_threshold": 3.0, "n_deriv_smooth": 2}
+    return rig, kp3d, pix, scores, fcfg, tri
+
+
+def _session_core(rig, pix, scores, fcfg, tri, device, dtype):
+    """``filter_pose_2d_arrays`` on each camera, then ``triangulate_arrays``
+    with the refinement at the tests' short budget (15 LM iterations of 2
+    CG sweeps), the macaque constraints."""
+    from macaque_tpu_torch.compat.aniposelib import CameraGroup
+    from macaque_tpu_torch.core.config import (
+        MACAQUE_CONSTRAINTS, constraint_indices)
+    from macaque_tpu_torch.tools.session import (
+        filter_pose_2d_arrays, triangulate_arrays)
+
+    class Short(CameraGroup):
+        def _refine_config(self, kwargs):
+            return super()._refine_config(kwargs)._replace(lm_iters=15,
+                                                           cg_iters=2)
+
+    filt = [filter_pose_2d_arrays(fcfg, p, s, device, dtype)
+            for p, s in zip(pix, scores)]
+    pts = np.stack([p for p, _ in filt])
+    scs = np.stack([s for _, s in filt])
+    out = triangulate_arrays(Short(rig, device, dtype), pts, scs, tri,
+                             constraint_indices(MACAQUE_CONSTRAINTS))
+    return pts, scs, out
+
+
+def test_session_array_core_on_the_card_matches_the_cpu(card, tmp_path):
+    """The session tools' array core (``chip_smoke.py``'s ``session``
+    phase at 48 frames of 4 cameras), card against CPU in float64: the
+    filter chain's points equal (the Viterbi picks), its scores and the
+    triangulation's points, errors, ncams and scores within 1e-8 of their
+    largest value, NaNs in the same places."""
+    rig, kp3d, pix, scores, fcfg, tri = _session_case(tmp_path)
+    got = _session_core(rig, pix, scores, fcfg, tri, card, torch.float64)
+    want = _session_core(rig, pix, scores, fcfg, tri, "cpu", torch.float64)
+    np.testing.assert_array_equal(got[0], want[0])
+    for a, b in zip([got[1], *got[2]], [want[1], *want[2]]):
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+        scale = np.nanmax(np.abs(b))
+        assert np.nanmax(np.abs(a - b)) <= 1e-8 * scale
+    err = np.nanmedian(np.linalg.norm(got[2][0] - kp3d, axis=-1))
+    assert err < 30.0, err
+
+
+def test_session_array_core_runs_on_the_card_by_default(card, tmp_path,
+                                                        monkeypatch):
+    """Given no device, the filter chain's Viterbi pass and the
+    triangulation's group run on the card (float32)."""
+    from macaque_tpu_torch.compat.aniposelib import CameraGroup
+    from macaque_tpu_torch.filters import viterbi
+    from macaque_tpu_torch.tools.session import (
+        filter_pose_2d_arrays, triangulate_arrays)
+
+    rig, kp3d, pix, scores, fcfg, tri = _session_case(tmp_path)
+    seen = []
+    run = viterbi.viterbi_filter_joints
+
+    def spy(points, *a, **k):
+        seen.append(points.device)
+        return run(points, *a, **k)
+
+    monkeypatch.setattr(viterbi, "viterbi_filter_joints", spy)
+    pts, scs = filter_pose_2d_arrays(fcfg, pix[0], scores[0])
+    assert seen and seen[0].type == "cuda"
+    assert pts.shape == pix[0].shape and scs.shape == scores[0].shape
+    group = CameraGroup(rig)
+    assert group.device.type == "cuda"
+    p3d, err, ncams, sc3d = triangulate_arrays(
+        group, pix, scores, dict(tri, optim=False))
+    assert p3d.shape == kp3d.shape and np.isfinite(p3d).mean() > 0.9

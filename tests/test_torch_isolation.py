@@ -1,9 +1,10 @@
 """The port stands alone: no file of ``macaque_tpu_torch`` nor
 ``chip_smoke.py`` imports JAX, Flax or the JAX package; ``cv2``, ``yaml``,
-``triton``, ``h5py`` and ``networkx`` are imported only inside functions;
-and the port, with every module ``chip_smoke.py`` imports, imports with
-jax, flax, cv2, yaml, h5py and networkx all unavailable (as on the
-machine with the card)."""
+``triton``, ``h5py``, ``networkx``, ``pandas`` and ``matplotlib`` are
+imported only inside functions; and the port, with every module
+``chip_smoke.py`` imports, imports with jax, flax, cv2, yaml, h5py,
+networkx, pandas and matplotlib all unavailable (as on the machine with
+the card)."""
 
 import ast
 import os
@@ -17,7 +18,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "macaque_tpu_torch")
 SMOKE = os.path.join(ROOT, "chip_smoke.py")
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "macaque_tpu"}
-LAZY = {"cv2", "yaml", "triton", "h5py", "networkx"}
+LAZY = {"cv2", "yaml", "triton", "h5py", "networkx", "pandas", "matplotlib"}
 
 
 def _sources():
@@ -69,7 +70,7 @@ def test_port_imports_without_jax_cv2_yaml():
     code = (
         "import sys, importlib\n"
         "for m in ('jax', 'jaxlib', 'flax', 'cv2', 'yaml', 'h5py', "
-        "'networkx'):\n"
+        "'networkx', 'pandas', 'matplotlib'):\n"
         "    sys.modules[m] = None\n"
         f"for m in {port_mods + smoke_mods!r}:\n"
         "    importlib.import_module(m)\n"
@@ -100,14 +101,14 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
 
 
 def test_pipeline_runs_without_cv2_or_yaml(tmp_path):
-    """With jax, cv2, yaml, h5py and networkx blocked, as on the card's
-    machine: RGBA stores are written and read, ``run_pipeline`` runs steps
+    """With jax, cv2, yaml, h5py, networkx, pandas and matplotlib blocked,
+    as on the card's machine: RGBA stores are written and read, ``run_pipeline`` runs steps
     1-4 on them (render off), ``overlay_points`` projects, the demo's and
     the CLI's parsers build, and only the render's drawing asks for cv2."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'cv2', 'yaml', 'h5py', "
-        "'networkx'):\n"
+        "'networkx', 'pandas', 'matplotlib'):\n"
         "    sys.modules[m] = None\n"
         "import numpy as np, torch\n"
         "torch.set_num_threads(1)\n"

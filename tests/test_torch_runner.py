@@ -38,8 +38,19 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAGES = ["step1_2d", "step2_crossview", "step3_crossframe", "step4_3d",
           "render"]
 PORTED = ("step1", "step2", "step3", "step4", "render", "pipeline",
-          "validate", "label-cage", "calibrate")
-WITH_DEVICE = ("calibrate",)   # the JAX surface, then ``--device`` last
+          "validate", "angles", "plots", "triangulate-session", "project-2d",
+          "label-videos", "session-angles", "tracking-errors", "label-3d",
+          "label-proj", "label-combined", "convert-videos",
+          "calibration-errors", "report", "filter-2d", "filter-3d",
+          "train-autoencoder", "label-filter-compare", "calibrate-session",
+          "extract-frames", "pose-videos", "summarize", "label-cage",
+          "calibrate")
+# the subcommands whose work reaches a tensor: the JAX surface, then
+# ``--device`` last
+WITH_DEVICE = ("triangulate-session", "project-2d", "tracking-errors",
+               "calibration-errors", "filter-2d", "train-autoencoder",
+               "calibrate-session", "extract-frames", "pose-videos",
+               "calibrate")
 
 
 @pytest.fixture(autouse=True, scope="module")
