@@ -69,14 +69,24 @@ Phases, one line each with elapsed seconds:
                scene's stores with the device tracker and with the host
                tracker: seconds per chunk, the assignment's host reads,
                every track one animal's;
- 10. train   - the trainers (``nn/train.py``, ``filters/autoencoder.py``)
+ 10. eval2d  - the evaluation and 2D tools: (a) ``tools/run2d.pose_2d_frames``
+               on 32 frames of 2048x1536 in chunks of 16 through the
+               parity networks (K1 and K2 counted around the calls); (b)
+               ``tools/coco_eval.coco_eval_arrays`` with the oracle on
+               tests/test_coco_eval.py's 24 images drawn with numpy, then
+               the parity networks on 8 of them scaled to 2048x1536; (c)
+               ``tools/sweep.run_synthetic_sweep`` on the card in float32,
+               two grid points of 60 frames x 4 cameras; (d)
+               ``association/pictorial.py`` on the card against the port's
+               native C++ oracle (g++); (e) only K1 and K2 launched;
+ 11. train   - the trainers (``nn/train.py``, ``filters/autoencoder.py``)
                at full width: ViTPose-huge on 64 crops, ResNet-152 on 64
                crops, Swin-S Mask R-CNN on 2 images of 608x800, the
                autoencoder on 4,800 frames; bf16 compute with float32
                parameters; seconds a step, throughput, peak memory, the
                pose step's bound; losses fall, the first step repeats, no
                kernel launches, a small pose step card against CPU;
- 11. calib   - the calibration (``calib/bundle.py``, ``calib/workflow.py``,
+ 12. calib   - the calibration (``calib/bundle.py``, ``calib/workflow.py``,
                ``compat/aniposelib.py``) at the reference rig's size (8
                omnidir cameras at 2048x1536): the omnidir and fisheye
                intrinsic fits of 10 board views, the extrinsic and full
@@ -87,7 +97,7 @@ Phases, one line each with elapsed seconds:
                against CPU at the tests' short budget, (b) the production
                budgets in float32 and float64 against the truth, (c) no
                kernel launch;
- 12. session - the anipose session tools' array core
+ 13. session - the anipose session tools' array core
                (``tools/session.py``: ``train_autoencoder``,
                ``filter_pose_2d_arrays`` with medfilt -> viterbi ->
                autoencoder, ``triangulate_arrays`` with RANSAC and the
@@ -105,7 +115,8 @@ last is ``{"ok": true, "device": {...}}``. Any failed phase raises, so the
 script exits non-zero and prints no result; so it does without a CUDA
 device. ``--phases device,build,kernels`` runs a subset (``device,step4``
 steps 2-4 alone, ``device,tracker,train`` the tracker and the trainers,
-``device,calib`` the calibration, ``device,session`` the session tools);
+``device,calib`` the calibration, ``device,session`` the session tools,
+``device,build,eval2d`` the evaluation and 2D tools);
 ``--phases device,build,kernels,main,profile`` adds a torch.profiler pass
 over one chunk (device time by kernel, idle share, a chrome trace under
 chiprun_out/).
@@ -3088,6 +3099,226 @@ def phase_session(sizes=SESSION_FULL, dev="cuda"):
         f"{time.perf_counter() - t0:.1f}s")
 
 
+EVAL2D_FRAMES, EVAL2D_THR = 32, 0.85     # (a): 2 chunks of 16 at 2048x1536
+COCO_IMAGES, COCO_FULL = 24, 8           # (b): the oracle's and the networks'
+SWEEP_FRAMES, SWEEP_CAMS = 60, 4         # (c): tests/test_sweep.py's slow test
+PICT_PROBLEMS, PICT_C, PICT_N = 64, 16, 48   # (d)
+
+
+def check_pose2d(perception, frames):
+    """(a) ``tools/run2d.pose_2d_frames`` in chunks of 16 through the parity
+    networks; K1 and K2 counted around the calls alone. Each frame's
+    keypoints are (D, 17, 3), finite where kept, NaN elsewhere; the kept
+    count is ``perception.detect``'s count above the threshold on the same
+    frames; some detection passed. Returns the launches."""
+    from macaque_tpu_torch import kernels
+    from macaque_tpu_torch.tools.run2d import pose_2d_frames
+
+    kernels.reset_launches()
+    t = time.perf_counter()
+    out = [pose_2d_frames(perception, frames[i:i + CHUNK], EVAL2D_THR)
+           for i in range(0, len(frames), CHUNK)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    kps = np.concatenate([k for k, _ in out])
+    valid = np.concatenate([v for _, v in out])
+    n_det = sum(int((perception.detect(frames[i:i + CHUNK])[1]
+                     > EVAL2D_THR).sum()) for i in range(0, len(frames), CHUNK))
+    ok = (kps.shape == (len(frames), perception.max_det, 17, 3)
+          and np.isfinite(kps[valid]).all() and np.isnan(kps[~valid]).all()
+          and int(valid.sum()) == n_det > 0)
+    log(f"eval2d (a): pose_2d_frames on {len(frames)} frames of 2048x1536 in "
+        f"chunks of {CHUNK} at det_thr {EVAL2D_THR}: {wall:.3f}s "
+        f"({wall / len(frames):.4f}s a frame), {int(valid.sum())} detections "
+        f"kept (detect's count {n_det}), keypoints {kps.shape}; launches "
+        f"{launches}")
+    if not ok:
+        raise AssertionError("eval2d (a): pose_2d_frames' keypoints or "
+                             "masks are off")
+    for k in ("packed_attention", "roi_align_windowed"):
+        if launches[k] <= 0:
+            raise AssertionError(f"eval2d (a): pose_2d_frames never launched {k}")
+    return launches
+
+
+def coco_scene(n=COCO_IMAGES):
+    """tests/test_coco_eval.py's scene drawn with numpy: one camera, two
+    animals' filled boxes (``cv2.rectangle``'s inclusive, truncated
+    corners, clipped), the frame index in the top edge, and the
+    ``load_coco`` records of its annotations. Returns (proj, images,
+    records)."""
+    from macaque_tpu_torch.tools.synthetic import (
+        encode_index, make_test_rig, project_scene, simulate_scene)
+
+    proj = project_scene(make_test_rig(1, seed=41),
+                         simulate_scene(2, n, seed=42))
+    images, records = [], []
+    for t in range(n):
+        img = np.full((480, 640, 3), 30, np.uint8)
+        boxes, kps, areas = [], [], []
+        for a in range(2):
+            pts = proj[0, a, t]
+            x1, y1 = pts.min(axis=0) - 8
+            x2, y2 = pts.max(axis=0) + 8
+            img[max(int(y1), 0):max(int(y2) + 1, 0),
+                max(int(x1), 0):max(int(x2) + 1, 0)] = (0, 180, 0)
+            boxes.append([x1, y1, x2, y2])
+            kps.append(np.concatenate([pts, np.full((len(pts), 1), 2.0)], 1))
+            areas.append((x2 - x1) * (y2 - y1))
+        encode_index(img, t)
+        images.append(img)
+        records.append({"file_name": f"f{t:03d}.png",
+                        "boxes": np.asarray(boxes, float),
+                        "keypoints": np.stack(kps),
+                        "areas": np.asarray(areas, float)})
+    return proj, images, records
+
+
+def check_coco(perception):
+    """(b) ``tools/coco_eval.coco_eval_arrays``: the oracle on the 24-image
+    scene to tests/test_coco_eval.py's bounds; then the parity networks on
+    8 of its images scaled to 2048x1536 (nearest neighbour, ground truth
+    scaled alike): every AP finite and in [0, 1]."""
+    from macaque_tpu_torch.tools.coco_eval import coco_eval_arrays
+    from macaque_tpu_torch.tools.synthetic import SyntheticPerception
+
+    t = time.perf_counter()
+    proj, images, records = coco_scene()
+    drawn = time.perf_counter() - t
+    t = time.perf_counter()
+    res = coco_eval_arrays(SyntheticPerception(0, proj, noise=0.5), images,
+                           records, det_thr=0.5, progress=False)
+    oracle = time.perf_counter() - t
+    log(f"eval2d (b): {len(images)} images drawn in {drawn:.3f}s; the oracle "
+        f"in {oracle:.3f}s: det {res['det']}, pose {res['pose']}")
+    if not (res["n_images"] == len(images) and res["det"]["AP50"] > 0.95
+            and res["pose"]["AP50"] > 0.95 and res["det"]["mAP"] > 0.5):
+        raise AssertionError(f"eval2d (b): oracle APs below the test's: {res}")
+    s = 2048 / 640
+    rows = (np.arange(1536) * 480) // 1536
+    cols = (np.arange(2048) * 640) // 2048
+    big = [img[rows][:, cols] for img in images[:COCO_FULL]]
+    recs = [{**r, "boxes": r["boxes"] * s, "areas": r["areas"] * s * s,
+             "keypoints": r["keypoints"] * np.array([s, s, 1.0])}
+            for r in records[:COCO_FULL]]
+    t = time.perf_counter()
+    res = coco_eval_arrays(perception, big, recs, det_thr=EVAL2D_THR,
+                           progress=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    aps = list(res["det"].values()) + list(res["pose"].values())
+    log(f"eval2d (b): the parity networks on {COCO_FULL} images of 2048x1536 "
+        f"in {wall:.3f}s ({wall / COCO_FULL:.4f}s an image): det {res['det']}, "
+        f"pose {res['pose']}")
+    if not (res["n_images"] == COCO_FULL
+            and all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in aps)):
+        raise AssertionError(f"eval2d (b): the networks' APs are off: {res}")
+
+
+def check_sweep(root, dev="cuda"):
+    """(c) ``tools/sweep.run_synthetic_sweep`` on the card in float32 with
+    tests/test_sweep.py's two points (its slow test: 60 frames, 4 cameras;
+    the stores RGBA, no cv2 here): precision and recall above 0.8 for each
+    ranked row."""
+    from macaque_tpu_torch.tools.sweep import (
+        SweepPoint, rank_sweep, run_synthetic_sweep)
+
+    grid = [SweepPoint(0.85, 0.50, 0.05, 72, True),
+            SweepPoint(0.65, 0.30, 0.25, 36, False)]
+    t = time.perf_counter()
+    log_csv = run_synthetic_sweep(os.path.join(root, "sweep"), grid=grid,
+                                  n_frame=SWEEP_FRAMES, n_cam=SWEEP_CAMS,
+                                  verbose=False, device=dev,
+                                  dtype=torch.float32)
+    wall = time.perf_counter() - t
+    ranking = rank_sweep(log_csv)
+    log(f"eval2d (c): run_synthetic_sweep, {len(grid)} points of "
+        f"{SWEEP_FRAMES} frames x {SWEEP_CAMS} cameras, float32: {wall:.3f}s "
+        f"({wall / len(grid):.3f}s a point, the stores included); " + "; ".join(
+            f"{r['match']}/{r['prox']}/{r['tlow']}/{r['tbuf']}/{r['fuse']}: "
+            f"precision {r['precision']:.3f} recall {r['recall']:.3f}"
+            for r in ranking))
+    if len(ranking) != len(grid) or not all(
+            r["precision"] > 0.8 and r["recall"] > 0.8 for r in ranking):
+        raise AssertionError(f"eval2d (c): the sweep's rows are off: {ranking}")
+
+
+def check_pictorial(dev="cuda"):
+    """(d) ``association/pictorial.py`` on the card (float64) against the
+    port's native C++ oracle (built with g++ here): the picks of 64 seeded
+    problems at C = 16, and ``closure_to_clusters`` at N = 48 (step 2's M)
+    against ``transform_closure``."""
+    from macaque_tpu_torch.association.pictorial import (
+        closure_to_clusters, infer_pictorial_3d)
+    from macaque_tpu_torch.native import load_native
+
+    t = time.perf_counter()
+    nat = load_native()
+    built = time.perf_counter() - t
+    rng = np.random.default_rng(0)
+    probs = [(rng.uniform(0, 1, (13, PICT_C)),
+              rng.uniform(-500, 500, (13, PICT_C, 3)),
+              rng.uniform(80, 150, 13), rng.uniform(5, 30, 13))
+             for _ in range(PICT_PROBLEMS)]
+    t = time.perf_counter()
+    got = [infer_pictorial_3d(*(torch.as_tensor(a, device=dev)
+                                for a in p)) for p in probs]
+    got = torch.stack(got).cpu().numpy()
+    wall = time.perf_counter() - t
+    want = np.stack([nat.pictorial_infer(*p) for p in probs])
+    rels = []
+    for _ in range(8):
+        X = (rng.uniform(size=(PICT_N, PICT_N)) < 1.5 / PICT_N).astype(np.uint8)
+        X = ((X + X.T) > 0).astype(np.uint8)
+        np.fill_diagonal(X, 0)
+        rels.append(X)
+    t = time.perf_counter()
+    clusters = [closure_to_clusters(X, device=dev) for X in rels]
+    t_cl = time.perf_counter() - t
+    same = [np.array_equal(c, nat.transform_closure(X))
+            for c, X in zip(clusters, rels)]
+    log(f"eval2d (d): native oracle loaded in {built:.3f}s; "
+        f"infer_pictorial_3d on the card, {PICT_PROBLEMS} problems at C = "
+        f"{PICT_C}: {wall:.3f}s, picks equal to the oracle's: "
+        f"{np.array_equal(got, want)}; closure_to_clusters at N = {PICT_N}, "
+        f"{len(rels)} relations ({sum(int(c.any(0).sum()) for c in clusters)} "
+        f"clusters): {t_cl:.3f}s, equal: {all(same)}")
+    if not (np.array_equal(got, want) and all(same)):
+        raise AssertionError("eval2d (d): pictorial inference differs from "
+                             "the native oracle")
+
+
+def phase_eval2d(perception, dev="cuda"):
+    """The evaluation and 2D tools on the card: (a) the 2D path at full
+    width through the parity networks, (b) COCO evaluation, (c) the
+    tracker sweep, (d) pictorial inference against the native oracle, (e)
+    only K1 and K2 launched. Returns (a)'s launches."""
+    import tempfile
+
+    from macaque_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    t = time.perf_counter()
+    frames = synthetic_frames(EVAL2D_FRAMES)
+    log(f"eval2d: {len(frames)} frames of 2048x1536 drawn in "
+        f"{time.perf_counter() - t:.1f}s")
+    launches = check_pose2d(perception, frames)     # resets the counts
+    del frames
+    check_coco(perception)
+    with tempfile.TemporaryDirectory(dir=REPO,
+                                     prefix=".chip_smoke_eval2d_") as root:
+        check_sweep(root, dev)
+    check_pictorial(dev)
+    moved = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    log(f"eval2d (e): kernels launched in the phase {moved}; phase "
+        f"{time.perf_counter() - t0:.1f}s")
+    if set(moved) - {"packed_attention", "roi_align_windowed"}:
+        raise AssertionError(f"eval2d (e): kernels other than K1 and K2 "
+                             f"launched: {moved}")
+    return launches
+
+
 def phase_profile(perception, store, T):
     """One 16-frame chunk of process_camera under torch.profiler: device
     time by kernel, and device busy time against the wall clock."""
@@ -3122,7 +3353,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="device,build,kernels,main,step2,step3,step4,"
-                            "pipeline,tracker,train,calib,session")
+                            "pipeline,tracker,eval2d,train,calib,session")
     phases = ap.parse_args(argv).phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3135,7 +3366,7 @@ def main(argv=None) -> int:
     if "build" in phases:
         phase_build()
     entries, models, perception = [], None, None
-    if {"kernels", "main", "pipeline"} & set(phases):
+    if {"kernels", "main", "pipeline", "eval2d"} & set(phases):
         models = build_models(torch.device("cuda"), torch.bfloat16)
     if "kernels" in phases:
         gen = torch.Generator(device="cuda")
@@ -3194,6 +3425,12 @@ def main(argv=None) -> int:
                                                         *scene)
             if "tracker" in phases:
                 phase_tracker(root, *scene)
+    if "eval2d" in phases:
+        from macaque_tpu_torch.pipeline.perception import TorchPerception
+
+        perception = perception or TorchPerception(
+            *models[:3], max_det=8, device=torch.device("cuda"))
+        runs["pose2d"] = phase_eval2d(perception)
     if "train" in phases:
         del models, perception
         torch.cuda.empty_cache()

@@ -1,21 +1,24 @@
 """Umbrella CLI of the port: ``python -m macaque_tpu_torch <command>``.
 
-The JAX package's ``python -m macaque_tpu`` subcommands, with the same
-arguments: the pipeline's ``step1``, ``step2``, ``step3``, ``step4``,
-``render``, ``pipeline`` and ``validate``; the analysis' ``angles`` and
-``plots``; the anipose session tools (``triangulate-session``,
-``calibrate-session``, ``filter-2d``, ``filter-3d``, ``train-autoencoder``,
-``project-2d``, ``summarize``, ``session-angles``, ``tracking-errors``,
-``label-videos``, ``label-3d``, ``label-proj``, ``label-combined``,
-``label-filter-compare``, ``convert-videos``, ``calibration-errors``,
-``extract-frames``, ``pose-videos`` and ``report``); and the calibration's
-``label-cage`` and ``calibrate`` (every ``--step``). The subcommands whose
-work reaches a tensor take ``--device`` last (the card when not given;
-``cpu`` for the CPU). Every stage runs on the card.
+All 34 of the JAX package's ``python -m macaque_tpu`` subcommands, with
+the same arguments: the pipeline's ``step1``, ``step2``, ``step3``,
+``step4``, ``render``, ``pipeline`` and ``validate``; the analysis'
+``angles`` and ``plots``; the 2D tools' ``pose2d`` and ``eval-coco``,
+``convert-weights`` and the tracker ``sweep``; the anipose session tools
+(``triangulate-session``, ``calibrate-session``, ``filter-2d``,
+``filter-3d``, ``train-autoencoder``, ``project-2d``, ``summarize``,
+``session-angles``, ``tracking-errors``, ``label-videos``, ``label-3d``,
+``label-proj``, ``label-combined``, ``label-filter-compare``,
+``convert-videos``, ``calibration-errors``, ``extract-frames``,
+``pose-videos`` and ``report``); and the calibration's ``label-cage`` and
+``calibrate`` (every ``--step``). The subcommands whose work reaches a
+tensor take ``--device`` last (the card when not given; ``cpu`` for the
+CPU). Every stage runs on the card.
 The calibration's ``config.yaml`` and ``.h5`` files are read with PyYAML
 and h5py; ``render``, the session tools' videos and the calibration's
 board and marker detection use cv2; the session tools' tables use pandas
-and h5py, their plots matplotlib.
+and h5py, their plots matplotlib; ``pose2d`` and ``eval-coco`` read their
+videos and images with cv2.
 """
 
 from __future__ import annotations
@@ -34,6 +37,34 @@ SESSION_COMMANDS = (
 ON_DEVICE = ("triangulate-session", "project-2d", "tracking-errors",
              "calibration-errors", "filter-2d", "train-autoencoder",
              "calibrate-session", "extract-frames", "pose-videos")
+
+
+def _cpu_detector():
+    from macaque_tpu_torch.nn import DetectorConfig, SwinMaskRCNN
+
+    return SwinMaskRCNN(DetectorConfig(), device="cpu")
+
+
+def _cpu_pose():
+    from macaque_tpu_torch.nn import ViTPose, VitPoseConfig
+
+    return ViTPose(VitPoseConfig(), device="cpu")
+
+
+def _cpu_id():
+    from macaque_tpu_torch.nn import ResNetClassifier, ResNetConfig
+
+    return ResNetClassifier(ResNetConfig(), device="cpu")
+
+
+# ``convert-weights``: the JAX CLI's four checkpoints, each with the
+# float32 CPU module its state dict loads into
+CONVERT_JOBS = (
+    ("detection/detection.pth", _cpu_detector),
+    ("pose/pose.pth", _cpu_pose),
+    ("id/id_finetuned.pth", _cpu_id),
+    ("id/id_mff1y.pth", _cpu_id),
+)
 
 
 def add_device(sp, what="work"):
@@ -80,6 +111,35 @@ def parser() -> argparse.ArgumentParser:
     sp.add_argument("--out", default="./plots")
     sp.add_argument("--fps", type=float, default=24.0)
 
+    sp = sub.add_parser(
+        "pose2d", help="2D-only detect+pose skeleton overlay on a plain "
+        "video (reference run_2D notebook). NOTE: no tracking/ID — "
+        "boxes are per-frame; use `step1` for the tracked 2D pipeline")
+    sp.add_argument("video")
+    sp.add_argument("--out", default="pose2d.mp4")
+    sp.add_argument("--weights", default=None,
+                    help="converted weights dir (default "
+                    "$MACAQUE_TPU_WEIGHTS)")
+    sp.add_argument("--det-thr", type=float, default=0.85)
+    sp.add_argument("--max-frames", type=int, default=None)
+    add_device(sp, "networks")
+
+    sp = sub.add_parser(
+        "eval-coco", help="COCO-dataset detector/pose AP eval "
+        "(det_pose_optim notebook flow)")
+    sp.add_argument("--ann", required=True,
+                    help="COCO annotation json")
+    sp.add_argument("--images", required=True, help="images dir")
+    sp.add_argument("--weights", default=None)
+    sp.add_argument("--det-thr", type=float, default=0.85)
+    sp.add_argument("--max-images", type=int, default=None)
+    add_device(sp, "networks")
+
+    sp = sub.add_parser("convert-weights")
+    sp.add_argument("--weights", default="./model",
+                    help="dir with detection/pose/id .pth checkpoints")
+    sp.add_argument("--cache", default="./model/cache")
+
     # anipose-style session workflows (project config.toml driven)
     for name in SESSION_COMMANDS:
         sp = sub.add_parser(name)
@@ -112,6 +172,14 @@ def parser() -> argparse.ArgumentParser:
     sp.add_argument("--config", default="config.toml")
     sp.add_argument("--weights", default=None)
     add_device(sp, "networks")
+
+    sp = sub.add_parser(
+        "sweep", help="tracker hyperparameter sweep on the synthetic "
+                      "scene (tracking_evaluation notebook harness)")
+    sp.add_argument("--out", default="./results3D_sweep")
+    sp.add_argument("--frames", type=int, default=96)
+    sp.add_argument("--cams", type=int, default=4)
+    add_device(sp, "steps 2-4")
 
     sp = sub.add_parser("summarize")
     sp.add_argument("what", choices=("pose3d", "pose3d-filtered",
@@ -215,6 +283,40 @@ def main(argv=None):
 
         for p in plot_all(args.kp3d_pickle, args.out, args.fps):
             print(f"wrote {p}")
+    elif args.cmd == "pose2d":
+        from macaque_tpu_torch.pipeline.weights import build_torch_perception
+        from macaque_tpu_torch.tools.run2d import render_2d_video
+
+        weights = args.weights or os.environ.get("MACAQUE_TPU_WEIGHTS",
+                                                 "./model")
+        out = render_2d_video(args.video, args.out,
+                              build_torch_perception(weights, args.device),
+                              det_thr=args.det_thr,
+                              max_frames=args.max_frames)
+        print(out)
+    elif args.cmd == "eval-coco":
+        import json
+
+        from macaque_tpu_torch.pipeline.weights import build_torch_perception
+        from macaque_tpu_torch.tools.coco_eval import run_coco_eval
+
+        weights = args.weights or os.environ.get("MACAQUE_TPU_WEIGHTS",
+                                                 "./model")
+        res = run_coco_eval(build_torch_perception(weights, args.device),
+                            args.images, args.ann, det_thr=args.det_thr,
+                            max_images=args.max_images)
+        print(json.dumps(res))
+    elif args.cmd == "convert-weights":
+        convert_weights(args.weights, args.cache)
+    elif args.cmd == "sweep":
+        from macaque_tpu_torch.tools.sweep import (
+            rank_sweep, run_synthetic_sweep)
+
+        log = run_synthetic_sweep(args.out, n_frame=args.frames,
+                                  n_cam=args.cams, device=args.device)
+        print(f"wrote {log}")
+        for row in rank_sweep(log):
+            print(row)
     elif args.cmd in SESSION_COMMANDS + ("extract-frames", "pose-videos",
                                          "summarize"):
         for files in session_command(args).values():
@@ -251,6 +353,30 @@ def main(argv=None):
             wf.optimize_all_camera_params_driver(args.config, **on)
         elif args.step == "fix":
             wf.fix_extrinsic_optim(args.config, ref=args.ref)
+
+
+def convert_weights(weights_dir: str, cache_dir: str) -> None:
+    """``convert-weights``: each checkpoint of ``CONVERT_JOBS`` that exists
+    under ``weights_dir`` is loaded into its float32 CPU module (every
+    parameter must be present; unconsumed keys are reported) and the
+    module's state dict is cached as ``<cache_dir>/<name>.pt``."""
+    from macaque_tpu_torch.nn.checkpoint import convert_and_cache
+    from macaque_tpu_torch.pipeline.weights import load_checkpoint
+
+    def converter(make, path):
+        def convert(state_dict):
+            model = make()
+            load_checkpoint(model, path, state_dict)
+            return model.state_dict()
+        return convert
+
+    for rel, make in CONVERT_JOBS:
+        p = os.path.join(weights_dir, rel)
+        if os.path.exists(p):
+            convert_and_cache(p, converter(make, p), cache_dir)
+            print(f"converted {rel}")
+        else:
+            print(f"missing {rel} (skipped)")
 
 
 def session_command(args) -> dict:

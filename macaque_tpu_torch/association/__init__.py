@@ -1,6 +1,6 @@
 """Cross-view association on tensors: the ray-distance affinity and the
-batched SVT matching of step 2 (port of ``macaque_tpu/association``; its
-pictorial-structure module is not ported yet)."""
+batched SVT matching of step 2, and the pictorial-structure inference with
+its transitive closure (port of ``macaque_tpu/association``)."""
 
 from macaque_tpu_torch.association.affinity import (
     build_rays,
@@ -10,6 +10,11 @@ from macaque_tpu_torch.association.affinity import (
 )
 from macaque_tpu_torch.association.svt import (
     match_svt, proj_2dpam, project_simplex)
+from macaque_tpu_torch.association.pictorial import (
+    macaque_skeleton_tree,
+    infer_pictorial_3d,
+    transitive_closure,
+)
 
 __all__ = [
     "build_rays",
@@ -19,4 +24,7 @@ __all__ = [
     "match_svt",
     "proj_2dpam",
     "project_simplex",
+    "macaque_skeleton_tree",
+    "infer_pictorial_3d",
+    "transitive_closure",
 ]

@@ -40,11 +40,14 @@ _IGNORABLE_PATTERNS = (
 )
 
 
-def load_checkpoint(model: torch.nn.Module, path: str) -> dict:
+def load_checkpoint(model: torch.nn.Module, path: str, ckpt=None) -> dict:
     """Load a .pth (mmengine's ``{'state_dict': ...}`` wrapper or a bare
-    state dict) into ``model``; every parameter must be present. Returns the
-    state dict that was loaded."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    state dict) into ``model``; every parameter must be present, and the
+    checkpoint keys no parameter consumed are reported. ``ckpt``, if given,
+    is the file's contents already read. Returns the state dict that was
+    loaded."""
+    if ckpt is None:
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = ckpt.get("state_dict", ckpt)
     sd = {k: v for k, v in sd.items()
           if not any(p in k for p in _IGNORABLE_PATTERNS)}

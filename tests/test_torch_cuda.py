@@ -1360,3 +1360,105 @@ def test_session_array_core_runs_on_the_card_by_default(card, tmp_path,
     p3d, err, ncams, sc3d = triangulate_arrays(
         group, pix, scores, dict(tri, optim=False))
     assert p3d.shape == kp3d.shape and np.isfinite(p3d).mean() > 0.9
+
+
+def _small_perception(device):
+    """A small-width TorchPerception (the widths of tests/torch_parity.py,
+    built without JAX), weights from seed 0, the box head's foreground bias
+    raised so that boxes pass the threshold. On the card the detector
+    computes in bf16 (K2 takes only a bf16 canvas), the pose and ID models
+    in float32; on the CPU all in float32."""
+    from macaque_tpu_torch.nn import (
+        DetectorConfig, ResNetClassifier, ResNetConfig, SwinMaskRCNN,
+        ViTPose, VitPoseConfig)
+    from macaque_tpu_torch.nn.swin import SwinConfig
+    from macaque_tpu_torch.pipeline.perception import TorchPerception
+
+    def detector(dtype, dev):
+        return SwinMaskRCNN(DetectorConfig(
+            swin=SwinConfig(embed_dim=16, depths=(2, 2, 2, 2),
+                            num_heads=(2, 4, 4, 8), compute_dtype=dtype),
+            fpn_channels=32, rpn_nms_pre=50, rpn_max=50, rcnn_max=10,
+            rcnn_roi_topk=50, rcnn_roi_chunk=16, compute_dtype=dtype),
+            device=dev)
+
+    torch.manual_seed(0)
+    det = detector(torch.float32, "cpu")
+    with torch.no_grad():
+        det.roi_head.bbox_head.fc_cls.bias[0] += 6.0
+    pose = ViTPose(VitPoseConfig(img_size=(64, 48), embed_dim=64, depth=2,
+                                 num_heads=4, deconv_channels=(32, 32)),
+                   device="cpu")
+    idm = ResNetClassifier(ResNetConfig(), device="cpu")
+    if device != "cpu":
+        card_det = detector(torch.bfloat16, "cuda")
+        card_det.load_state_dict(det.state_dict())
+        det, pose, idm = card_det, pose.to("cuda"), idm.to("cuda")
+    return TorchPerception(det, pose, idm, max_det=4, det_target=128,
+                           device=device)
+
+
+def test_pose_2d_frames_on_the_card_by_default_matches_the_cpu(card,
+                                                               monkeypatch):
+    """``tools/run2d.pose_2d_frames`` through a perception given no device
+    (the card: a bf16 detector, a float32 pose with TF32 off): its mask is
+    the card detector's scores above the threshold, which keeps as many
+    boxes as the float32 detector on the CPU (the scores sit near 0.99,
+    far from 0.5); the CPU's float32 pose on the card's boxes gives the
+    same NaN pattern, keypoint scores within 1e-4, keypoints within 0.1 px
+    where their score reaches 0.3 and at least 90 % of all joints within
+    0.1 px (tests/test_torch_run2d.py's tolerances)."""
+    from macaque_tpu_torch.tools.run2d import pose_2d_frames
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    rng = np.random.default_rng(0)
+    frames = np.kron(rng.integers(40, 200, (8, 12, 16, 3)),
+                     np.ones((1, 8, 8, 1))).astype(np.uint8)
+    frames[:, 20:60, 30:70] = (220, 200, 40)
+    on_card, on_cpu = _small_perception(None), _small_perception("cpu")
+    assert on_card.device.type == "cuda"
+    kc, vc = pose_2d_frames(on_card, frames, 0.5)
+    boxes, scores = on_card.detect(frames)
+    np.testing.assert_array_equal(vc, scores > 0.5)
+    assert vc.any() and kc.shape == (8, 4, 17, 3)
+    assert vc.sum() == (on_cpu.detect(frames)[1] > 0.5).sum()
+    kh = on_cpu.pose(frames, boxes, vc)
+    np.testing.assert_array_equal(np.isnan(kc), np.isnan(kh))
+    np.testing.assert_allclose(kc[..., 2], kh[..., 2], atol=1e-4)
+    sure = kh[..., 2] >= 0.3
+    np.testing.assert_allclose(kc[sure][:, :2], kh[sure][:, :2], atol=0.1)
+    moved = np.abs(kc[vc][..., :2] - kh[vc][..., :2]).max(-1)
+    assert np.mean(moved <= 0.1) >= 0.9
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pictorial_on_the_card_matches_the_cpu(card, dtype):
+    """``infer_pictorial_3d`` picks equal card against CPU on 20 problems
+    at C = 16 and on a tie (first maximum on both); ``transitive_closure``
+    and ``closure_to_clusters`` (on the card by default) equal."""
+    from macaque_tpu_torch.association.pictorial import (
+        closure_to_clusters, infer_pictorial_3d, transitive_closure)
+
+    rng = np.random.default_rng(1)
+    for trial in range(21):
+        args = [rng.uniform(0, 1, (13, 16)), rng.uniform(-500, 500, (13, 16, 3)),
+                rng.uniform(80, 150, 13), rng.uniform(5, 30, 13)]
+        if trial == 20:                      # columns c and c + 8 tie
+            args[0][:, 8:] = args[0][:, :8]
+            args[1][:, 8:] = args[1][:, :8]
+        got = infer_pictorial_3d(*(torch.as_tensor(a, dtype=dtype, device=card)
+                                   for a in args))
+        assert got.device.type == "cuda"
+        want = infer_pictorial_3d(*(torch.as_tensor(a, dtype=dtype)
+                                    for a in args))
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    for N in (5, 48, 130):
+        X = (rng.uniform(size=(3, N, N)) < 2.0 / N)
+        got = transitive_closure(torch.as_tensor(X, device=card))
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      transitive_closure(torch.as_tensor(X)).numpy())
+        sym = (X[0] | X[0].T).astype(np.uint8)
+        np.fill_diagonal(sym, 0)
+        np.testing.assert_array_equal(closure_to_clusters(sym),
+                                      closure_to_clusters(sym, device="cpu"))

@@ -149,3 +149,52 @@ def test_pipeline_runs_without_cv2_or_yaml(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "pipeline ran" in proc.stdout
+
+
+def test_eval2d_tools_run_without_cv2(tmp_path):
+    """With cv2 and the rest blocked, as on the card's machine: the COCO
+    evaluation's array core scores ``chip_smoke.py``'s numpy-drawn scene
+    with the oracle, ``run_synthetic_sweep`` writes its recording as RGBA
+    stores and runs steps 1-4 on them, the pictorial inference and the
+    closure run, and only the file readers (``run_coco_eval``,
+    ``render_2d_video``) ask for cv2."""
+    code = (
+        "import sys, glob\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'cv2', 'yaml', 'h5py', "
+        "'networkx', 'pandas', 'matplotlib'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "import chip_smoke\n"
+        "from macaque_tpu_torch.association.pictorial import ("
+        "closure_to_clusters, infer_pictorial_3d)\n"
+        "from macaque_tpu_torch.tools import coco_eval, run2d, sweep\n"
+        "from macaque_tpu_torch.tools.synthetic import SyntheticPerception\n"
+        "proj, images, records = chip_smoke.coco_scene(8)\n"
+        "res = coco_eval.coco_eval_arrays(SyntheticPerception(0, proj, "
+        "noise=0.5), images, records, det_thr=0.5, progress=False)\n"
+        "assert res['n_images'] == 8 and res['det']['AP50'] > 0.95, res\n"
+        f"root = {str(tmp_path)!r}\n"
+        "log = sweep.run_synthetic_sweep(root, grid=[sweep.SweepPoint()], "
+        "n_frame=24, verbose=False, device='cpu')\n"
+        "assert glob.glob(root + '/videos/synth.*/*.avi')\n"
+        "assert len(sweep.rank_sweep(log)) == 1\n"
+        "picks = infer_pictorial_3d(*(torch.zeros(s) for s in "
+        "((13, 3), (13, 3, 3), (13,))), torch.ones(13))\n"
+        "assert picks.tolist() == [0] * 13\n"
+        "assert closure_to_clusters(np.eye(3, dtype=np.uint8), "
+        "device='cpu').sum() == 3\n"
+        "for fn, args in ((coco_eval.run_coco_eval, (None, root, 'x.json')), "
+        "(run2d.render_2d_video, ('x.mp4', 'y.mp4', None))):\n"
+        "    try:\n"
+        "        fn(*args)\n"
+        "        raise AssertionError('read files without cv2')\n"
+        "    except ImportError:\n"
+        "        pass\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in "
+        "('macaque_tpu', 'jax', 'cv2') and sys.modules[m] is not None]\n"
+        "print('eval2d ran', res['det'])\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "eval2d ran" in proc.stdout

@@ -38,19 +38,20 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAGES = ["step1_2d", "step2_crossview", "step3_crossframe", "step4_3d",
           "render"]
 PORTED = ("step1", "step2", "step3", "step4", "render", "pipeline",
-          "validate", "angles", "plots", "triangulate-session", "project-2d",
+          "validate", "angles", "plots", "pose2d", "eval-coco",
+          "convert-weights", "triangulate-session", "project-2d",
           "label-videos", "session-angles", "tracking-errors", "label-3d",
           "label-proj", "label-combined", "convert-videos",
           "calibration-errors", "report", "filter-2d", "filter-3d",
           "train-autoencoder", "label-filter-compare", "calibrate-session",
-          "extract-frames", "pose-videos", "summarize", "label-cage",
+          "extract-frames", "pose-videos", "sweep", "summarize", "label-cage",
           "calibrate")
 # the subcommands whose work reaches a tensor: the JAX surface, then
 # ``--device`` last
 WITH_DEVICE = ("triangulate-session", "project-2d", "tracking-errors",
                "calibration-errors", "filter-2d", "train-autoencoder",
                "calibrate-session", "extract-frames", "pose-videos",
-               "calibrate")
+               "calibrate", "pose2d", "eval-coco", "sweep")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -342,7 +343,7 @@ def test_cli_subcommands_are_the_jax_clis():
     from macaque_tpu_torch.__main__ import main
 
     got, want = _subcommands(_parser_of(main)), _subcommands(_parser_of(jmain))
-    assert list(got) == list(PORTED)
+    assert list(got) == list(PORTED) == list(want) and len(PORTED) == 34
     for name in PORTED:
         surface = _surface(got[name])
         if name in WITH_DEVICE:
@@ -369,6 +370,71 @@ def test_cli_validate_prints_what_jax_prints(tmp_path, capsys):
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout == want and "ValidationResult(tp=" in want
+
+
+def test_cli_convert_weights_without_checkpoints(tmp_path, capsys):
+    """No ``.pth`` under ``--weights``: the four ``missing`` lines of the
+    JAX CLI's jobs (``macaque_tpu/__main__.py:362-374``), and no cache.
+    The JAX CLI itself cannot print them: the ``import os`` of its
+    ``pose2d`` branch (:220) makes ``os`` local to ``main``, so every other
+    branch that reads ``os`` raises ``UnboundLocalError`` (ROADMAP.md §3)."""
+    from macaque_tpu.__main__ import main as jmain
+    from macaque_tpu_torch.__main__ import main
+
+    args = ["convert-weights", "--weights", str(tmp_path / "model"),
+            "--cache", str(tmp_path / "cache")]
+    with pytest.raises(UnboundLocalError):
+        jmain(args)
+    main(args)
+    assert capsys.readouterr().out == "".join(
+        f"missing {rel} (skipped)\n" for rel in (
+            "detection/detection.pth", "pose/pose.pth",
+            "id/id_finetuned.pth", "id/id_mff1y.pth"))
+    assert not os.path.exists(tmp_path / "cache")
+
+
+def test_cli_convert_weights_one_checkpoint(tmp_path, capsys, monkeypatch):
+    """One small mmpretrain-named ResNet ``.pth`` (the two-stage ResNet of
+    tests/torch_parity.py, with an unconsumed key, in mmengine's
+    ``state_dict`` wrapper) as ``id/id_finetuned.pth``: converted into a
+    float32 CPU module and cached as ``<cache>/id_finetuned.pt`` with its
+    state dict; unconsumed keys reported; a second call loads the cache; a
+    checkpoint missing a parameter raises."""
+    from macaque_tpu_torch import __main__ as cli
+    from macaque_tpu_torch import nn as tnn
+    from macaque_tpu_torch.nn.checkpoint import load_params
+    from tests.torch_parity import TTinyResNet
+
+    def tiny():
+        return tnn.ResNetClassifier(TTinyResNet(), device="cpu")
+
+    jobs = [(rel, tiny if rel.startswith("id/") else make)
+            for rel, make in cli.CONVERT_JOBS]
+    monkeypatch.setattr(cli, "CONVERT_JOBS", tuple(jobs))
+    torch.manual_seed(0)
+    sd = tiny().state_dict()
+    os.makedirs(tmp_path / "model" / "id")
+    torch.save({"state_dict": {**sd, "head.extra.weight": torch.ones(2)}},
+               tmp_path / "model" / "id" / "id_finetuned.pth")
+    args = ["convert-weights", "--weights", str(tmp_path / "model"),
+            "--cache", str(tmp_path / "cache")]
+    cli.main(args)
+    out = capsys.readouterr().out
+    assert "converted id/id_finetuned.pth" in out
+    assert "1 checkpoint keys not consumed" in out and "head.extra" in out
+    assert out.count("(skipped)") == 3
+    cached = load_params(str(tmp_path / "cache" / "id_finetuned.pt"))
+    assert list(cached) == list(sd)
+    for k in sd:
+        assert cached[k].dtype == sd[k].dtype and torch.equal(cached[k], sd[k])
+    stamp = os.stat(tmp_path / "cache" / "id_finetuned.pt").st_mtime_ns
+    cli.main(args)
+    assert "not consumed" not in capsys.readouterr().out      # the cache
+    assert os.stat(tmp_path / "cache" / "id_finetuned.pt").st_mtime_ns == stamp
+    del sd["head.fc.weight"]
+    torch.save(sd, tmp_path / "model" / "id" / "id_mff1y.pth")
+    with pytest.raises(KeyError, match="missing"):
+        cli.main(args)
 
 
 def _run_demo_arguments():

@@ -33,7 +33,7 @@ from macaque_tpu_torch.pipeline.weights import serving_tier
 from macaque_tpu_torch.video.imgstore import ImgStoreReader
 from tests.torch_parity import (
     DET, SWIN, JTinyResNet, TTinyResNet, VIT, jax_detector, load,
-    random_variables, torch_detector)
+    random_variables, tiny_perceptions)
 
 H, W, N_FRAMES, MAX_DET = 96, 128, 6, 4
 
@@ -94,18 +94,8 @@ def _run_both(root, flax, port):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("step1")
-    dvars, pvars, ivars = _variables()
-    jpose = jnn.ViTPose(jnn.VitPoseConfig(**VIT))
-    jid = jnn.ResNetClassifier(JTinyResNet())
-    flax = FlaxPerception(jax_detector(), dvars, jpose, pvars, jid, ivars,
-                          max_det=MAX_DET, det_target=W)
-    port = TorchPerception(
-        load(torch_detector(), swin_maskrcnn_from_jax(dvars)),
-        load(tnn.ViTPose(tnn.VitPoseConfig(**VIT), device="cpu"),
-             vitpose_from_jax(pvars)),
-        load(tnn.ResNetClassifier(TTinyResNet(), device="cpu"),
-             resnet_from_jax(ivars)),
-        max_det=MAX_DET, det_target=W, device="cpu")
+    flax, port = tiny_perceptions(*_variables(), max_det=MAX_DET,
+                                  det_target=W)
     out, stages = _run_both(root, flax, port)
     return out, stages, port, root
 

@@ -74,3 +74,27 @@ def torch_detector(**kw):
 def load(model, state_dict):
     model.load_state_dict(state_dict, strict=True)
     return model
+
+
+def tiny_perceptions(dvars, pvars, ivars, max_det, det_target):
+    """The JAX package's ``FlaxPerception`` and the port's
+    ``TorchPerception`` (CPU, float32) on the same small-width variables:
+    the detector of ``SWIN``/``DET``, the ViTPose of ``VIT`` and the
+    two-stage ResNet."""
+    from macaque_tpu.pipeline.perception import FlaxPerception
+    from macaque_tpu_torch.nn.convert import (
+        resnet_from_jax, swin_maskrcnn_from_jax, vitpose_from_jax)
+    from macaque_tpu_torch.pipeline.perception import TorchPerception
+
+    flax = FlaxPerception(
+        jax_detector(), dvars, jnn.ViTPose(jnn.VitPoseConfig(**VIT)), pvars,
+        jnn.ResNetClassifier(JTinyResNet()), ivars, max_det=max_det,
+        det_target=det_target)
+    port = TorchPerception(
+        load(torch_detector(), swin_maskrcnn_from_jax(dvars)),
+        load(tnn.ViTPose(tnn.VitPoseConfig(**VIT), device="cpu"),
+             vitpose_from_jax(pvars)),
+        load(tnn.ResNetClassifier(TTinyResNet(), device="cpu"),
+             resnet_from_jax(ivars)),
+        max_det=max_det, det_target=det_target, device="cpu")
+    return flax, port
