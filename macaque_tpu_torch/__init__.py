@@ -9,7 +9,9 @@ pose -> ID, ``pipeline/step1.py``, with its serving tiers), step 2
 drive it. ``nn/`` holds the models and the hand-written CUDA kernels'
 wrappers (``nn/attention.py``, ``nn/roialign.py``, ``nn/int8.py``; sources
 in ``csrc/``, built by ``kernels.py``); ``cameras/``, ``geometry/``,
-``association/`` and ``filters/`` the geometry of steps 2-4. It imports
+``association/`` and ``filters/`` the geometry of steps 2-4;
+``core/mesh.py`` shards the perception and steps 2-4 over several
+devices in one process. It imports
 torch, numpy and scipy; ``cv2``, ``yaml`` and ``h5py`` only inside the
 functions that decode or encode video other than RGBA imgstore chunks,
 draw the overlay, or read YAML configs and calibration files.

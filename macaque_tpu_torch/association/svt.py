@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from macaque_tpu_torch.core.mesh import device_guard
+
 
 def project_simplex(y: torch.Tensor) -> torch.Tensor:
     """Euclidean projection of each trailing-axis vector onto
@@ -73,9 +75,102 @@ def _product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         torch.backends.cuda.matmul.allow_tf32 = flag
 
 
+class _SVT:
+    """One SVT problem batch on one device: the iterate and its update
+    (one :meth:`step` an iteration), so that several shards of a batch can
+    step in lockstep."""
+
+    def __init__(self, S, same_block, valid, alpha, _lambda, mu0, pselect,
+                 dual_stochastic, block_size):
+        N = S.shape[-1]
+        dev, dt = S.device, S.dtype
+        self.device = dev
+        eye = torch.eye(N, dtype=torch.bool, device=dev)
+        self.same_block = same_block.to(dev)
+        if valid is None:
+            self.diag_mask = eye
+            self.n_eff = torch.tensor(float(N), dtype=dt, device=dev)
+            self.pair_valid = torch.ones((N, N), dtype=torch.bool, device=dev)
+        else:
+            valid = valid.to(dev)
+            self.pair_valid = valid[..., :, None] & valid[..., None, :]
+            self.diag_mask = eye & self.pair_valid
+            self.n_eff = torch.clamp(valid.sum(-1).to(dt), min=1.0)
+        self.valid = valid
+        self._lambda, self.pselect = _lambda, pselect
+        self.dual_stochastic, self.block_size = dual_stochastic, block_size
+
+        S = torch.where(eye, 0.0, S)
+        S = torch.where(self.pair_valid, S, 0.0)
+        S = (S + S.transpose(-1, -2)) / 2
+        self.X = S
+        self.Y = torch.zeros_like(S)
+        self.W = alpha - S
+        self.mu = torch.full(S.shape[:-2], mu0, dtype=dt, device=dev)
+        self.first = torch.zeros(S.shape[:-2], dtype=torch.long, device=dev)
+
+    def step(self, it: int, tol: float) -> torch.Tensor:
+        """Iteration ``it`` (from 1); returns each matrix's convergence."""
+        X, Y, W, mu = self.X, self.Y, self.W, self.mu
+        same_block, diag_mask = self.same_block, self.diag_mask
+        pair_valid, valid = self.pair_valid, self.valid
+        N = X.shape[-1]
+        dt, dev = X.dtype, X.device
+        Xprev = X
+        muM = mu[..., None, None]
+        U, s, Vh = torch.linalg.svd(Y / muM + X, full_matrices=False)
+        s_th = torch.clamp(s - self._lambda / mu[..., None], min=0.0)
+        Q = _product_f32(U * s_th[..., None, :], Vh)
+        X = Q - (W + Y) / muM
+        X = torch.where(same_block, 0.0, X)
+        if self.pselect == 1:
+            X = torch.where(diag_mask, 1.0, X)
+        X = torch.where(pair_valid, X, 0.0)
+        X = torch.clamp(X, 0.0, 1.0)
+        if self.dual_stochastic:
+            # every (cam_i, cam_j) block is (block_size, block_size) in the
+            # padded camera-major layout: one reshape and a batched
+            # proj_2dpam; zero padding is projection-neutral, and the
+            # convergence normalizer counts real entries only
+            block_size = self.block_size
+            nc = N // block_size
+            lead = X.shape[:-2]
+            Xb = X.reshape(*lead, nc, block_size, nc, block_size)
+            Xb = Xb.movedim(-3, -2)                  # (..., nc, nc, bs, bs)
+            if valid is None:
+                denom = torch.tensor(float(block_size * block_size),
+                                     dtype=dt, device=dev)
+            else:
+                counts = valid.reshape(*lead, nc, block_size).sum(-1).to(dt)
+                denom = counts[..., :, None] * counts[..., None, :]
+            Xb = proj_2dpam(Xb, tol=1e-2, denom=denom)
+            X = Xb.movedim(-2, -3).reshape(*lead, N, N)
+            X = torch.where(same_block, 0.0, X)
+            if self.pselect == 1:
+                X = torch.where(diag_mask, 1.0, X)
+            X = torch.where(pair_valid, X, 0.0)
+        X = (X + X.transpose(-1, -2)) / 2
+        self.Y = Y + muM * (X - Q)
+
+        dQ = torch.where(pair_valid, X - Q, 0.0)
+        pRes = torch.linalg.vector_norm(dQ, dim=(-2, -1)) / self.n_eff
+        dRes = mu * torch.linalg.vector_norm(X - Xprev, dim=(-2, -1)) / self.n_eff
+        conv = (pRes < tol) & (dRes < tol)
+
+        mu = torch.where(pRes > 10 * dRes, mu * 2, mu)
+        self.mu = torch.where(dRes > 10 * pRes, mu / 2, mu)
+        self.X = X
+        self.first = torch.where((self.first == 0) & conv, it, self.first)
+        return conv
+
+    def result(self) -> torch.Tensor:
+        X = (self.X + self.X.transpose(-1, -2)) / 2
+        return (X > 0.5).to(torch.uint8)
+
+
 def match_svt(
-    S: torch.Tensor,
-    same_block: torch.Tensor,
+    S,
+    same_block,
     alpha: float = 0.5,
     _lambda: float = 50.0,
     mu0: float = 64.0,
@@ -83,10 +178,10 @@ def match_svt(
     max_iter: int = 500,
     pselect: int = 1,
     dual_stochastic: bool = False,
-    valid: torch.Tensor | None = None,
+    valid=None,
     block_size: int | None = None,
     stats: dict | None = None,
-) -> torch.Tensor:
+):
     """Solve batched SVT matching.
 
     S: (..., N, N) affinity matrices (a batch axis is optional).
@@ -104,87 +199,47 @@ def match_svt(
       iteration that met the tolerance (0: none), where it would have
       stopped alone.
 
-    Returns binary match matrices (..., N, N) uint8 (threshold 0.5).
+    Sharded (``core/mesh.py``): ``S``, ``same_block`` and ``valid`` may
+    each be a list with one entry per mesh entry (the batch's shards and
+    the replicas); every shard then steps each iteration, and the batch
+    stops only when all the shards' matrices have converged, as the JAX
+    package's sharded program all-reduces its stop test: one host read an
+    iteration, not one a shard. ``first_converged`` then runs over the
+    shards in order.
+
+    Returns binary match matrices (..., N, N) uint8 (threshold 0.5), a
+    list of them (one a shard) when sharded.
     """
     if dual_stochastic and block_size is None:
         raise ValueError(
             "dual_stochastic=True needs block_size (detections per camera "
             "in the padded slot layout)")
-    N = S.shape[-1]
-    dev, dt = S.device, S.dtype
-    eye = torch.eye(N, dtype=torch.bool, device=dev)
-    same_block = same_block.to(dev)
-
-    if valid is None:
-        diag_mask = eye
-        n_eff = torch.tensor(float(N), dtype=dt, device=dev)
-        pair_valid = torch.ones((N, N), dtype=torch.bool, device=dev)
-    else:
-        valid = valid.to(dev)
-        pair_valid = valid[..., :, None] & valid[..., None, :]
-        diag_mask = eye & pair_valid
-        n_eff = torch.clamp(valid.sum(-1).to(dt), min=1.0)
-
-    S = torch.where(eye, 0.0, S)
-    S = torch.where(pair_valid, S, 0.0)
-    S = (S + S.transpose(-1, -2)) / 2
-    X = S
-    Y = torch.zeros_like(S)
-    W = alpha - S
-    mu = torch.full(S.shape[:-2], mu0, dtype=dt, device=dev)
-    first = torch.zeros(S.shape[:-2], dtype=torch.long, device=dev)
-
+    sharded = isinstance(S, (list, tuple))
+    parts = list(zip(S, same_block, valid if valid is not None
+                     else [None] * len(S))) if sharded \
+        else [(S, same_block, valid)]
+    shards = []
+    for s_i, b_i, v_i in parts:
+        with device_guard(s_i.device):
+            shards.append(_SVT(s_i, b_i, v_i, alpha, _lambda, mu0, pselect,
+                               dual_stochastic, block_size))
+    home = shards[0].device
     it = 0
     while it < max_iter:
-        Xprev = X
-        muM = mu[..., None, None]
-        U, s, Vh = torch.linalg.svd(Y / muM + X, full_matrices=False)
-        s_th = torch.clamp(s - _lambda / mu[..., None], min=0.0)
-        Q = _product_f32(U * s_th[..., None, :], Vh)
-        X = Q - (W + Y) / muM
-        X = torch.where(same_block, 0.0, X)
-        if pselect == 1:
-            X = torch.where(diag_mask, 1.0, X)
-        X = torch.where(pair_valid, X, 0.0)
-        X = torch.clamp(X, 0.0, 1.0)
-        if dual_stochastic:
-            # every (cam_i, cam_j) block is (block_size, block_size) in the
-            # padded camera-major layout: one reshape and a batched
-            # proj_2dpam; zero padding is projection-neutral, and the
-            # convergence normalizer counts real entries only
-            nc = N // block_size
-            lead = X.shape[:-2]
-            Xb = X.reshape(*lead, nc, block_size, nc, block_size)
-            Xb = Xb.movedim(-3, -2)                  # (..., nc, nc, bs, bs)
-            if valid is None:
-                denom = torch.tensor(float(block_size * block_size),
-                                     dtype=dt, device=dev)
-            else:
-                counts = valid.reshape(*lead, nc, block_size).sum(-1).to(dt)
-                denom = counts[..., :, None] * counts[..., None, :]
-            Xb = proj_2dpam(Xb, tol=1e-2, denom=denom)
-            X = Xb.movedim(-2, -3).reshape(*lead, N, N)
-            X = torch.where(same_block, 0.0, X)
-            if pselect == 1:
-                X = torch.where(diag_mask, 1.0, X)
-            X = torch.where(pair_valid, X, 0.0)
-        X = (X + X.transpose(-1, -2)) / 2
-        Y = Y + muM * (X - Q)
-
-        dQ = torch.where(pair_valid, X - Q, 0.0)
-        pRes = torch.linalg.vector_norm(dQ, dim=(-2, -1)) / n_eff
-        dRes = mu * torch.linalg.vector_norm(X - Xprev, dim=(-2, -1)) / n_eff
-        conv = (pRes < tol) & (dRes < tol)
-
-        mu = torch.where(pRes > 10 * dRes, mu * 2, mu)
-        mu = torch.where(dRes > 10 * pRes, mu / 2, mu)
         it += 1
-        first = torch.where((first == 0) & conv, it, first)
-        if bool(conv.all()):
+        conv = []
+        for sh in shards:
+            with device_guard(sh.device):
+                conv.append(sh.step(it, tol).all())
+        # one read for the whole batch, all shards' stop tests together
+        if bool(torch.stack([c.to(home) for c in conv]).all()):
             break
     if stats is not None:
         stats["iterations"] = it
         stats["host_reads"] = it
-        stats["first_converged"] = first.cpu().numpy()
-    X = (X + X.transpose(-1, -2)) / 2
-    return (X > 0.5).to(torch.uint8)
+        stats["first_converged"] = (
+            torch.cat([sh.first.cpu() for sh in shards]) if sharded
+            else shards[0].first.cpu()).numpy()
+    if sharded:
+        return [sh.result() for sh in shards]
+    return shards[0].result()

@@ -173,7 +173,10 @@ def refine_points_3d_batch(
     # (cameras.py:1149-1154), every coordinate series at once
     flat = p3ds_init.reshape(A, F, J * 3)
     interp = interpolate_nan(flat, dim=1)
-    med = median_filter_1d(interp, 7, dim=1)
+    # contiguous, so that each lane's mean below sums in one order whatever
+    # the batch (a lane then gets the same iterates alone as in a batch,
+    # which the mesh's shard-by-shard solve relies on)
+    med = median_filter_1d(interp, 7, dim=1).contiguous()
     p3ds_intp = interp.reshape(A, F, J, 3)
     p3ds_med = med.reshape(A, F, J, 3)
     default_smooth = 1.0 / torch.abs(torch.diff(p3ds_med, dim=1)).mean(

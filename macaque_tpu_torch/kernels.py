@@ -9,10 +9,14 @@ first use, into ``_build/`` beside this file (override with
 ``MACAQUE_TPU_TORCH_BUILD``), and is reused while the sources and headers
 are unchanged: the library's name carries a hash of their contents.
 
-Every C entry point returns ``cudaGetLastError()`` after its launch;
-:func:`check` turns a non-zero code into an exception. ``LAUNCHES`` holds
-one plain integer per kernel, which its wrapper raises by one each time
-it launches the kernel, and nowhere else.
+Every C entry point launches on the current CUDA device and returns
+``cudaGetLastError()`` after its launch. The wrappers call them through
+:func:`launch`, which makes the input's device current around the call
+(a shard of a mesh on ``cuda:1`` must not launch on ``cuda:0``), passes
+that device's current stream, and turns a non-zero code into an
+exception. ``LAUNCHES`` holds one plain integer per kernel, which
+:func:`launch` raises by one each time a wrapper launches the kernel, and
+nowhere else.
 """
 
 from __future__ import annotations
@@ -192,3 +196,19 @@ def current_stream(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def launch(kernel: str, entry: str, device, *args, name: str | None = None
+           ) -> None:
+    """Call the C entry point ``macaque_<entry>`` with ``args`` and the
+    current stream of ``device`` as its last argument, with ``device``
+    made the current CUDA device around the call; raise under ``name``
+    (default ``kernel``) on a launch error, and count one launch of
+    ``kernel``."""
+    import torch
+
+    with torch.cuda.device(device):
+        err = getattr(library(), f"macaque_{entry}")(
+            *args, current_stream(device))
+    check(err, name or kernel)
+    LAUNCHES[kernel] += 1

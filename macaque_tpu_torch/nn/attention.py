@@ -70,12 +70,10 @@ def packed_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("packed_attention: qkv must be contiguous and 16-byte aligned")
     out = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
-    lib = kernels.library()
-    err = lib.macaque_packed_attention(
+    kernels.launch(
+        "packed_attention", "packed_attention", qkv.device,
         ctypes.c_void_p(qkv.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        B, N, heads, D, float(D ** -0.5), kernels.current_stream(qkv.device))
-    kernels.check(err, "packed_attention")
-    kernels.LAUNCHES["packed_attention"] += 1
+        B, N, heads, D, float(D ** -0.5))
     return out
 
 
@@ -149,14 +147,12 @@ def window_attention(qkv, bias, mask, heads: int,
                              f"float32 (nW, {T}, {T}) with nW dividing {B_}")
     out = torch.empty((B_, T, C3 // 3), dtype=qkv.dtype, device=qkv.device)
     if B_:
-        err = kernels.library().macaque_window_attention(
+        kernels.launch(
+            "window_attention", "window_attention", qkv.device,
             ctypes.c_void_p(qkv.data_ptr()), ctypes.c_void_p(bias.data_ptr()),
             ctypes.c_void_p(mask.data_ptr() if mask is not None else 0),
             ctypes.c_void_p(out.data_ptr()), B_, T, heads, D, n_mask,
-            float(D ** -0.5), int(blocked), _WINDOW_DTYPES[qkv.dtype],
-            kernels.current_stream(qkv.device))
-        kernels.check(err, "window_attention")
-        kernels.LAUNCHES["window_attention"] += 1
+            float(D ** -0.5), int(blocked), _WINDOW_DTYPES[qkv.dtype])
     return out
 
 
@@ -194,12 +190,11 @@ def _unpacked_attention(q, k, v, name: str) -> torch.Tensor:
                              f"aligned and on {q.device}")
     out = torch.empty_like(q)
     if B and H:
-        err = kernels.library().macaque_attention(
+        kernels.launch(
+            "attention", "attention", q.device,
             ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
             ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            B, N, H, D, float(D ** -0.5), kernels.current_stream(q.device))
-        kernels.check(err, name)
-        kernels.LAUNCHES["attention"] += 1
+            B, N, H, D, float(D ** -0.5), name=name)
     return out
 
 

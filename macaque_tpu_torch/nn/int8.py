@@ -114,12 +114,10 @@ def quantize_rows(x: torch.Tensor):
     q = torch.empty((M, K), dtype=torch.int8, device=x.device)
     s = torch.empty((M, 1), dtype=torch.float32, device=x.device)
     if M:
-        err = kernels.library().macaque_quantize_rows(
+        kernels.launch(
+            "quantize_rows", "quantize_rows", x.device,
             ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(q.data_ptr()),
-            ctypes.c_void_p(s.data_ptr()), M, K,
-            kernels.current_stream(x.device))
-        kernels.check(err, "quantize_rows")
-        kernels.LAUNCHES["quantize_rows"] += 1
+            ctypes.c_void_p(s.data_ptr()), M, K)
     return q, s
 
 
@@ -167,14 +165,12 @@ def quant_int8_matmul(x, weight_q, wscale, bias=None, out_bias=None):
         xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
         xs = torch.empty((M,), dtype=torch.float32, device=x.device)
         ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-        err = kernels.library().macaque_quant_int8_matmul(
+        kernels.launch(
+            "quant_int8_matmul", "quant_int8_matmul", x.device,
             ptr(x2), ptr(weight_q), ptr(wscale),
             *(ctypes.c_void_p(b.data_ptr() if b is not None else 0)
               for b in (bias, out_bias)),
-            ptr(xq), ptr(xs), ptr(out), M, N, K,
-            kernels.current_stream(x.device))
-        kernels.check(err, "quant_int8_matmul")
-        kernels.LAUNCHES["quant_int8_matmul"] += 1
+            ptr(xq), ptr(xs), ptr(out), M, N, K)
     return out.reshape(*lead, N)
 
 

@@ -125,13 +125,10 @@ def roi_align_windows(canvas, plane, ys, xs, ky, kx) -> torch.Tensor:
                          "(as window_inputs rounds them)")
     out = torch.empty((R, out_size, out_size, C), dtype=canvas.dtype,
                       device=canvas.device)
-    lib = kernels.library()
-    err = lib.macaque_roi_align_windowed(
+    kernels.launch(
+        "roi_align_windowed", "roi_align_windowed", canvas.device,
         *(ctypes.c_void_p(t.data_ptr()) for t in tensors),
-        ctypes.c_void_p(out.data_ptr()), R, H0, W0, C, w,
-        kernels.current_stream(canvas.device))
-    kernels.check(err, "roi_align_windowed")
-    kernels.LAUNCHES["roi_align_windowed"] += 1
+        ctypes.c_void_p(out.data_ptr()), R, H0, W0, C, w)
     return out
 
 

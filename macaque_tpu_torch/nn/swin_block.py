@@ -204,15 +204,14 @@ def fused_swin_block(x_win, tok_valid, params, bias_hnm, mask, heads: int,
                            dtype=x_win.dtype, device=x_win.device)
         ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
         tv = tok_valid.to(torch.uint8).contiguous()
-        err = kernels.library().macaque_swin_block(
+        kernels.launch(
+            "swin_block", "swin_block", x_win.device,
             ptr(x_win), ptr(tv), ptr(bias_hnm),
             ctypes.c_void_p(mask.data_ptr() if mask is not None else 0),
             *(ptr(params[k]) for k in _param_shapes(C)),
             ptr(out), ptr(work), nW, C, heads,
             mask.shape[0] if mask is not None else 0, slots, float(eps),
-            kernels.current_stream(x_win.device))
-        kernels.check(err, "fused_swin_block")
-        kernels.LAUNCHES["swin_block"] += 1
+            name="fused_swin_block")
     return out
 
 

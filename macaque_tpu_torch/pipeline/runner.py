@@ -16,7 +16,7 @@ import torch
 
 from macaque_tpu_torch.cameras.rig import CameraRig
 from macaque_tpu_torch.core.config import PipelineConfig
-from macaque_tpu_torch.core.device import resolve_device
+from macaque_tpu_torch.core.mesh import home_device
 from macaque_tpu_torch.core.trace import StageTimes
 
 
@@ -38,21 +38,22 @@ def run_pipeline(
     whatever device it was built for). Steps 2-4 and the overlay's
     reprojection run on ``device`` (the card when None; without one the
     call raises before step 1 unless ``device="cpu"``) in ``dtype``. The
-    render's drawing and encoding need cv2. ``mesh`` (several devices) is
-    not ported yet and raises."""
+    render's drawing and encoding need cv2. ``mesh``
+    (``core/mesh.py``) runs every device batch of steps 2-4 sharded over
+    its devices, the cameras replicated (``device`` defaults to its first
+    entry); a ``TorchPerception`` for a mesh is built with the same mesh
+    (the reference's scale-out is one process per GPU,
+    info_replication.md:14)."""
     from macaque_tpu_torch.pipeline.step1 import run_step1
     from macaque_tpu_torch.pipeline.step2 import run_step2
     from macaque_tpu_torch.pipeline.step3 import run_step3
     from macaque_tpu_torch.pipeline.step4 import run_step4
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "the pipeline across several devices (mesh) is not ported yet "
-            "(ROADMAP.md §1 item 7); pass mesh=None")
-    dev = resolve_device(device)
+    dev = home_device(mesh, device)
     result_dir = os.path.join(config.results_dir, config.data_name)
     timer = StageTimes()
     on = {"device": dev, "dtype": dtype}
+    steps = {**on, "mesh": mesh}
 
     with timer.stage("step1_2d"):
         run_step1(
@@ -60,15 +61,15 @@ def run_pipeline(
             perception, fps=config.fps, cfg=config.step1, redo=redo,
         )
     with timer.stage("step2_crossview"):
-        run_step2(result_dir, rig, config.cross_view, redo=redo, **on)
+        run_step2(result_dir, rig, config.cross_view, redo=redo, **steps)
     with timer.stage("step3_crossframe"):
         run_step3(result_dir, rig, config.cross_frame, fps=config.fps,
-                  redo=redo, **on)
+                  redo=redo, **steps)
     with timer.stage("step4_3d"):
         run_step4(
             result_dir, rig, pipeline_cfg=config,
             filter_cfg=config.filter, tri_cfg=config.triangulation,
-            redo=redo, **on,
+            redo=redo, **steps,
         )
 
     if render:

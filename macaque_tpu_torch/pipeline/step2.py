@@ -35,7 +35,9 @@ from macaque_tpu_torch.association.svt import match_svt
 from macaque_tpu_torch.cameras.omnidir import OmnidirCamera, omnidir_undistort
 from macaque_tpu_torch.cameras.rig import CameraRig
 from macaque_tpu_torch.core.config import CrossViewConfig
-from macaque_tpu_torch.core.device import resolve_device
+from macaque_tpu_torch.core.mesh import (
+    gather_shards, make_mesh, map_shards, put_batch_sharded, put_replicated,
+    stage_mesh)
 from macaque_tpu_torch.pipeline.artifacts import (
     read_alldata, stage_done, write_pickle)
 from macaque_tpu_torch.pipeline.geometry3d import (
@@ -79,20 +81,39 @@ def pack_keyframes(
     }
 
 
-def _on(cam: OmnidirCamera, x: np.ndarray, dtype=None) -> torch.Tensor:
-    """Host array -> tensor on the camera's device (in its dtype unless
-    ``dtype`` is given)."""
-    return torch.as_tensor(x, dtype=dtype or cam.K.dtype, device=cam.K.device)
+def _mesh_of(cam: OmnidirCamera, mesh, cams):
+    """The mesh (one entry on the camera's device when None) and the
+    camera's replicas on it (``cams`` when given)."""
+    if mesh is None:
+        mesh = make_mesh(devices=[cam.K.device])
+    return mesh, put_replicated(cam, mesh) if cams is None else cams
 
 
-def batched_best_combs(candidates, combo_tensor, cam_of, cam, n_cam):
+def _combo_rmse(cam, kp, use):
+    return reprojection_rmse(cam, triangulate_poses(cam, kp), kp, use)
+
+
+def _on_mesh(fn, mesh, cams, *arrays, dtype):
+    """``fn(cam, *arrays)`` with the arrays' first axis sharded over the
+    mesh (``cams``: the camera's replicas), gathered back on the host and
+    cut to the batch. Float arrays go to ``dtype``, the others keep
+    theirs."""
+    put = [put_batch_sharded(a, mesh, dtype=dtype if a.dtype.kind == "f"
+                             else None) for a in arrays]
+    outs = map_shards(fn, mesh, cams, *(s for s, _ in put))
+    return gather_shards(outs, put[0][1], device="cpu")
+
+
+def batched_best_combs(candidates, combo_tensor, cam_of, cam, n_cam,
+                       mesh=None, cams=None):
     """Batched get_best_comb (reference step2:610-646).
 
     For each ``(ti, person_slots)`` candidate, enumerate
     one-detection-per-camera combos, triangulate and reprojection-score
-    all combos of all candidates in one batched call on the camera's
-    device, and return the argmin-RMSE slot list per candidate.
-    ``combo_tensor(ti, slots)`` builds the padded (n_cam, J, 3) keypoint
+    all combos of all candidates in one batched call sharded over
+    ``mesh`` (the camera's device when None; ``cams``, the camera's
+    replicas on it, when given), and return the argmin-RMSE slot list per
+    candidate. ``combo_tensor(ti, slots)`` builds the padded (n_cam, J, 3) keypoint
     array for a combo. Any number of same-camera detections per candidate
     is handled (the collision case the leftover-remnant pass must
     survive)."""
@@ -111,10 +132,8 @@ def batched_best_combs(candidates, combo_tensor, cam_of, cam, n_cam):
     if combo_kp:
         kp_np = np.stack(combo_kp)
         use_np = (~np.isnan(kp_np[..., 0])).any(axis=2)       # (NC, C)
-        kp_all = _on(cam, kp_np)
-        p3d_all = triangulate_poses(cam, kp_all)               # (NC, J, 3)
-        rmse_all = reprojection_rmse(
-            cam, p3d_all, kp_all, _on(cam, use_np, torch.bool)).cpu().numpy()
+        rmse_all = _on_mesh(_combo_rmse, *_mesh_of(cam, mesh, cams), kp_np,
+                            use_np, dtype=cam.K.dtype).numpy()
         rmse_all = np.where(use_np.any(axis=1), rmse_all, np.inf)
     else:
         rmse_all = np.zeros((0,))
@@ -162,31 +181,44 @@ def _affinity_program(cam, cam_idx, pose, valid, cids, alpha_id):
 
 def affinity_and_match(cam: OmnidirCamera, packed: dict,
                        cfg: CrossViewConfig, max_det: int,
-                       svt_stats: dict | None = None, lap=None):
+                       svt_stats: dict | None = None, lap=None, mesh=None,
+                       cams=None):
     """Step 3 of the stage: the packed keyframes' affinity W (T, M, M)
-    and SVT match matrices (T, M, M) uint8 on the camera's device.
-    ``lap(name)``, if given, is called after each part."""
-    cam_idx = _on(cam, packed["cam_idx"], torch.long)
-    pose = _on(cam, packed["pose"])
-    valid = _on(cam, packed["valid"], torch.bool)
-    cids = _on(cam, packed["cids"], torch.long)
+    and SVT match matrices (T, M, M) uint8, gathered on the host.
+    ``lap(name)``, if given, is called after each part. The keyframe axis
+    is sharded over ``mesh`` (the camera's device when None; ``cams``, the
+    camera's replicas on it, when given), and the SVT steps the shards in
+    lockstep."""
+    mesh, cams = _mesh_of(cam, mesh, cams)
+    cam_idx = put_replicated(
+        torch.as_tensor(packed["cam_idx"], dtype=torch.long), mesh)
+    # keyframes are independent -> shard the keyframe axis over the mesh
+    pose, n_kf = put_batch_sharded(packed["pose"], mesh, dtype=cam.K.dtype)
+    valid, _ = put_batch_sharded(packed["valid"], mesh)
+    cids, _ = put_batch_sharded(packed["cids"], mesh, dtype=torch.long)
     # alpha_id as a float32 scalar, as the JAX package passes it
-    W = _affinity_program(cam, cam_idx, pose, valid, cids,
-                          torch.tensor(cfg.alpha_id, dtype=torch.float32))
+    alpha = torch.tensor(cfg.alpha_id, dtype=torch.float32)
+    W = map_shards(
+        lambda c, ci, p, v, d: _affinity_program(c, ci, p, v, d, alpha),
+        mesh, cams, cam_idx, pose, valid, cids)
     if lap:
         lap("affinity")
-    same_cam = cam_idx[:, None] == cam_idx[None, :]
+    same_cam = map_shards(lambda ci: ci[:, None] == ci[None, :], mesh,
+                          cam_idx)
     match = match_svt(
         W, same_cam, alpha=cfg.alpha_svt, _lambda=cfg.lambda_svt,
         dual_stochastic=cfg.dual_stochastic_svt, valid=valid,
         block_size=max_det, stats=svt_stats)
+    if svt_stats is not None:
+        svt_stats["first_converged"] = svt_stats["first_converged"][:n_kf]
     if lap:
         lap("svt")
-    return W, match
+    return (gather_shards(W, n_kf, device="cpu"),
+            gather_shards(match, n_kf, device="cpu"))
 
 
 def match_persons(cam: OmnidirCamera, packed: dict, match: np.ndarray,
-                  n_cam: int, n_joint: int):
+                  n_cam: int, n_joint: int, mesh=None, cams=None):
     """Step 4 of the stage: clusters of the match matrices, the best
     one-per-camera combination of each (and one extra pass over its
     leftovers), in reference order. Returns ``[(ti, slots)]`` and the
@@ -203,7 +235,7 @@ def match_persons(cam: OmnidirCamera, packed: dict, match: np.ndarray,
 
     def best_combs(candidates):
         return batched_best_combs(candidates, combo_tensor, cam_of, cam,
-                                  n_cam)
+                                  n_cam, mesh, cams)
 
     parents = []  # (ti, person_slots) in keyframe-then-cluster order
     for ti in range(match.shape[0]):
@@ -286,16 +318,15 @@ def run_step2(
     card when None) in ``dtype``. ``times``, if given, receives the
     seconds of each part (read_vote, pack, affinity, svt, best_comb,
     write), the SVT's iterations and host reads, and each keyframe's
-    first converged SVT iteration."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "step 2 across several devices (mesh) is not ported yet "
-            "(ROADMAP.md §1 item 7); pass mesh=None")
+    first converged SVT iteration. ``mesh`` (``core/mesh.py``) shards the
+    keyframes and the combinations over its devices, the camera
+    replicated on each; the SVT stops on all shards together, so the
+    pickle is the one ``mesh=None`` writes."""
     out_path = os.path.join(result_dir, "match_keyframe.pickle")
     if stage_done(out_path) and not redo:
         print(f"[step2] skip (exists): {out_path}")
         return out_path
-    dev = resolve_device(device)
+    mesh, dev = stage_mesh(mesh, device)
     t_last = [time.perf_counter()]
 
     def lap(name):
@@ -313,11 +344,14 @@ def run_step2(
     cam = rig.omni(dev, dtype)
     lap("pack")
 
+    cams = put_replicated(cam, mesh)
     svt_stats = {}
-    _, match = affinity_and_match(cam, packed, cfg, max_det, svt_stats, lap)
+    _, match = affinity_and_match(cam, packed, cfg, max_det, svt_stats, lap,
+                                  mesh, cams)
     finals, kp_fin = match_persons(cam, packed, match.cpu().numpy(),
-                                   rig.n_cam, cfg.n_joint)
-    p3d_fin = triangulate_poses(cam, _on(cam, kp_fin)).cpu().numpy()
+                                   rig.n_cam, cfg.n_joint, mesh, cams)
+    p3d_fin = _on_mesh(triangulate_poses, mesh, cams, kp_fin,
+                       dtype=dtype).numpy()
     lap("best_comb")
 
     per_kf: dict[int, list] = {ti: [] for ti in range(len(keyframes))}

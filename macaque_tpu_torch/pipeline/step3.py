@@ -27,7 +27,8 @@ import torch
 from macaque_tpu_torch.cameras.omnidir import omnidir_undistort
 from macaque_tpu_torch.cameras.rig import CameraRig
 from macaque_tpu_torch.core.config import CrossFrameConfig, VALID_COLLAR_CLASSES
-from macaque_tpu_torch.core.device import resolve_device
+from macaque_tpu_torch.core.mesh import (
+    gather_shards, map_shards, put_batch_sharded, put_replicated, stage_mesh)
 from macaque_tpu_torch.geometry.triangulate import triangulate_dlt_pinv
 from macaque_tpu_torch.pipeline.artifacts import (
     read_alldata, read_pickle, write_pickle, stage_done,
@@ -48,8 +49,11 @@ class TraceCalculator:
     ``seconds`` count the device calls and their time."""
 
     def __init__(self, rig: CameraRig, n_kp: int = 17, kp_thr: float = 0.3,
-                 device=None, dtype=torch.float32):
-        self.cam = rig.omni(device, dtype)
+                 device=None, dtype=torch.float32, mesh=None):
+        # the camera replicated over the mesh, each trace sharded over it
+        self.mesh, dev = stage_mesh(mesh, device)
+        self.cam = rig.omni(dev, dtype)
+        self.cams = put_replicated(self.cam, self.mesh)
         self.n_cam = rig.n_cam
         self.n_kp = n_kp
         self.kp_thr = kp_thr
@@ -62,16 +66,19 @@ class TraceCalculator:
         if n == 0:
             return np.zeros((0, self.n_kp, 3))
         t = time.perf_counter()
-        cam = self.cam
-        kp = torch.as_tensor(kp2d, dtype=cam.K.dtype, device=cam.K.device)
+        shards, n = put_batch_sharded(kp2d, self.mesh, dtype=self.cam.K.dtype)
+        out = gather_shards(map_shards(self._tri, self.mesh, self.cams,
+                                       shards), n, device="cpu").numpy()
+        self.calls += 1
+        self.seconds += time.perf_counter() - t
+        return out
+
+    def _tri(self, cam, kp):
         und = omnidir_undistort(cam, kp[..., :2])
         valid = (~torch.isnan(kp[..., 0])) & (kp[..., 2] >= self.kp_thr)
         undJ = torch.nan_to_num(und).transpose(-3, -2)
         validJ = valid.transpose(-2, -1)
-        out = triangulate_dlt_pinv(undJ, cam.pmat, validJ).cpu().numpy()
-        self.calls += 1
-        self.seconds += time.perf_counter() - t
-        return out
+        return triangulate_dlt_pinv(undJ, cam.pmat, validJ)
 
     def gather_kp2d(self, alldata, trk_rows: np.ndarray,
                     frames: np.ndarray) -> np.ndarray:
@@ -932,17 +939,15 @@ def run_step3(
     when None) in ``dtype``. ``times``, if given, receives the seconds of
     each part (read, connect, build, trim, ids, stitch with its flow
     solves, dedup, last_one, write), the flow solves' seconds and count,
-    and the trace calculator's device calls and seconds."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "step 3 across several devices (mesh) is not ported yet "
-            "(ROADMAP.md §1 item 7); pass mesh=None")
+    and the trace calculator's device calls and seconds. ``mesh``
+    (``core/mesh.py``) shards each trace's frames over its devices, the
+    camera replicated on each."""
     out_path = os.path.join(result_dir, "kp2d.pickle")
     if stage_done(out_path, os.path.join(result_dir, "track.pickle")) \
             and not redo:
         print(f"[step3] skip (exists): {out_path}")
         return out_path
-    dev = resolve_device(device)
+    mesh, dev = stage_mesh(mesh, device)
     t_last = [time.perf_counter()]
 
     def lap(name):
@@ -959,7 +964,7 @@ def run_step3(
     match_keyframes = read_pickle(
         os.path.join(result_dir, "match_keyframe.pickle")
     )
-    tc = TraceCalculator(rig, device=dev, dtype=dtype)
+    tc = TraceCalculator(rig, device=dev, dtype=dtype, mesh=mesh)
     wsize = int(fps * 5)
     lap("read")
 

@@ -31,7 +31,9 @@ from macaque_tpu_torch.core.config import (
     PipelineConfig,
     MACAQUE_BODYPARTS,
 )
-from macaque_tpu_torch.core.device import resolve_device
+from macaque_tpu_torch.core.mesh import (
+    device_guard, gather_shards, live_shards, map_shards, put_batch_sharded,
+    put_replicated, stage_mesh)
 from macaque_tpu_torch.filters.viterbi import viterbi_filter_joints
 from macaque_tpu_torch.geometry.ransac import triangulate_ransac
 from macaque_tpu_torch.geometry.refine3d import (
@@ -88,6 +90,29 @@ def correct_coordinate_frame(points: np.ndarray, bodyparts, axes_spec,
     return adj - center, M, center
 
 
+def _refine_sharded(refine, mesh, cams, p2d, p3d, dtype):
+    """``refine(cam, p2d, p3d)`` with the animals sharded over the mesh,
+    one shard after another (each LM loop reads its stop tests on the
+    host), skipping the shards that hold edge padding only. Returns the
+    gathered refinement and joint lengths, and the info of one batch:
+    per lane iterations and sweeps, the slowest shard's LM steps and CG
+    sweeps, and the sum of the host reads."""
+    p2d_sh, n = put_batch_sharded(p2d, mesh, dtype=dtype)
+    p3d_sh, _ = put_batch_sharded(p3d, mesh, dtype=dtype)
+    outs = []
+    for i in live_shards(p3d_sh, n):
+        with device_guard(mesh.device_list[i]):
+            outs.append(refine(cams[i], p2d_sh[i], p3d_sh[i]))
+    p3, jl = gather_shards([o[:2] for o in outs], n, device="cpu")
+    infos = [o[2] for o in outs]
+    info = {k: gather_shards([inf[k] for inf in infos], n, device="cpu")
+            for k in ("lm_iters", "cg_iters", "ftol_stop", "cost0", "cost")}
+    info["lm_steps"] = max(inf["lm_steps"] for inf in infos)
+    info["cg_sweeps"] = max(inf["cg_sweeps"] for inf in infos)
+    info["host_reads"] = sum(inf["host_reads"] for inf in infos)
+    return p3, jl, info
+
+
 def run_step4(
     result_dir: str,
     rig: CameraRig,
@@ -111,11 +136,15 @@ def run_step4(
     seconds of each part (viterbi, dlt, refine, reproject, write; configs
     and kp2d_f within write), the Viterbi's frame steps, the LM's
     iterations and CG sweeps per refined animal, and its loop's LM steps,
-    CG sweeps and host reads (each once for all animals)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "step 4 across several devices (mesh) is not ported yet "
-            "(ROADMAP.md §1 item 7); pass mesh=None")
+    CG sweeps and host reads (each once for all animals).
+
+    ``mesh`` (``core/mesh.py``) shards the work over its devices as the
+    JAX package does, the camera replicated on each: the Viterbi streams,
+    the DLT's points, the refined animals and the reprojected frames.
+    The refinement solves shard by shard (each lane's iterates do not
+    depend on its siblings'), skipping shards of edge padding only;
+    ``times`` then holds the slowest shard's LM steps and CG sweeps and
+    the sum of the host reads."""
     pc = pipeline_cfg or PipelineConfig()
     fixed_mode = joint_len_path is not None and os.path.exists(joint_len_path)
     out_name = "kp3d_fxdJointLen.pickle" if fixed_mode else "kp3d.pickle"
@@ -123,7 +152,7 @@ def run_step4(
     if stage_done(out_path) and not redo:
         print(f"[step4] skip (exists): {out_path}")
         return out_path
-    dev = resolve_device(device)
+    mesh, dev = stage_mesh(mesh, device)
     t_last = [time.perf_counter()]
 
     def lap(name):
@@ -142,17 +171,30 @@ def run_step4(
     kp2d = np.asarray(read_pickle(os.path.join(result_dir, "kp2d.pickle")))
     n_animal, n_frame, n_cam, n_kp, _ = kp2d.shape
     cam = rig.omni(dev, dtype)
+    cams = put_replicated(cam, mesh)
+
+    def sharded(fn, x, axis=0, out_axis=0):
+        """``fn(cam, x)`` with ``x``'s ``axis`` sharded over the mesh,
+        gathered on the host along ``out_axis``."""
+        shards, n = put_batch_sharded(x, mesh, axis, dtype)
+        return gather_shards(map_shards(fn, mesh, cams, shards), n,
+                             out_axis, device="cpu")
+
     lap("write")
 
     # ---------------- 2D Viterbi filter, one batch over (animal, cam, joint)
     print("[step4] 2D viterbi filtering...", flush=True)
-    kp = torch.as_tensor(kp2d.transpose(0, 2, 1, 3, 4), dtype=dtype,
-                         device=dev).reshape(-1, n_frame, n_kp, 1, 3)
-    f_pts, f_scs = viterbi_filter_joints(
-        kp[..., :2], kp[..., 2], filter_cfg.n_back,
-        filter_cfg.offset_threshold, filter_cfg.score_threshold)
-    f_pts = f_pts.cpu().numpy().reshape(n_animal, n_cam, n_frame, n_kp, 2)
-    f_scs = f_scs.cpu().numpy().reshape(n_animal, n_cam, n_frame, n_kp)
+
+    def viterbi(_, kp):
+        return viterbi_filter_joints(
+            kp[..., :2], kp[..., 2], filter_cfg.n_back,
+            filter_cfg.offset_threshold, filter_cfg.score_threshold)
+
+    # (animal, camera) streams are independent -> shard them over the mesh
+    f_pts, f_scs = sharded(viterbi, kp2d.transpose(0, 2, 1, 3, 4).reshape(
+        -1, n_frame, n_kp, 1, 3))
+    f_pts = f_pts.numpy().reshape(n_animal, n_cam, n_frame, n_kp, 2)
+    f_scs = f_scs.numpy().reshape(n_animal, n_cam, n_frame, n_kp)
     lap("viterbi")
 
     # kp2d_f in the reference layout (n_frame, n_kp, n_animal, 3, n_cam)
@@ -190,14 +232,12 @@ def run_step4(
     points_all = f_pts.copy()                    # (A, C, T, J, 2)
     bad_all = f_scs < tri_cfg.score_threshold
     points_all[bad_all] = np.nan
-    flat_ca = torch.as_tensor(
-        np.swapaxes(points_all, 0, 1).reshape(n_cam, -1, 2), dtype=dtype,
-        device=dev)
-    if tri_cfg.ransac:
-        p3d_init_all = triangulate_ransac(cam, flat_ca)[0]
-    else:
-        p3d_init_all = undistort_dlt(cam, flat_ca)
-    p3d_init_all = p3d_init_all.cpu().numpy().reshape(
+    # point axis (A*T*J) is the parallel axis here; cameras stay together
+    p3d_init_all = sharded(
+        (lambda c, x: triangulate_ransac(c, x)[0]) if tri_cfg.ransac
+        else undistort_dlt,
+        np.swapaxes(points_all, 0, 1).reshape(n_cam, -1, 2), axis=1)
+    p3d_init_all = p3d_init_all.numpy().reshape(
         n_animal, n_frame, n_kp, 3)
     lap("dlt")
 
@@ -211,17 +251,20 @@ def run_step4(
     info = None
     if refine_pos:
         sel = np.where(do_refine)[0]
-        p3d_ref_all, jl_all, info = refine_points_3d_batch(
-            cam,
-            torch.as_tensor(points_all[sel], dtype=dtype, device=dev),
-            torch.as_tensor(p3d_init_all[sel], dtype=dtype, device=dev),
-            constraints=constraints, constraints_weak=constraints_weak,
-            cfg=rcfg,
-            joint_lengths=joint_len_fixed if fixed_mode else None,
-            return_info=True,
-        )
-        p3d_ref_all = p3d_ref_all.cpu().numpy()
-        jl_all = jl_all.cpu().numpy()
+
+        def refine(c, p2d, p3d):
+            return refine_points_3d_batch(
+                c, p2d, p3d,
+                constraints=constraints, constraints_weak=constraints_weak,
+                cfg=rcfg,
+                joint_lengths=joint_len_fixed if fixed_mode else None,
+                return_info=True,
+            )
+
+        p3d_ref_all, jl_all, info = _refine_sharded(
+            refine, mesh, cams, points_all[sel], p3d_init_all[sel], dtype)
+        p3d_ref_all = p3d_ref_all.numpy()
+        jl_all = jl_all.numpy()
     lap("refine")
 
     # ONE batched reprojection for all animals
@@ -229,9 +272,8 @@ def run_step4(
     for a in range(n_animal):
         p3d_final[a] = (p3d_ref_all[refine_pos[a]] if do_refine[a]
                         else p3d_init_all[a])
-    proj_all = reproject_poses(cam, torch.as_tensor(
-        p3d_final.reshape(-1, n_kp, 3), dtype=dtype, device=dev))
-    proj_all = proj_all.cpu().numpy().reshape(
+    proj_all = sharded(reproject_poses, p3d_final.reshape(-1, n_kp, 3))
+    proj_all = proj_all.numpy().reshape(
         n_animal, n_frame, n_cam, n_kp, 2).transpose(0, 2, 1, 3, 4)
     lap("reproject")
 

@@ -1462,3 +1462,150 @@ def test_pictorial_on_the_card_matches_the_cpu(card, dtype):
         np.fill_diagonal(sym, 0)
         np.testing.assert_array_equal(closure_to_clusters(sym),
                                       closure_to_clusters(sym, device="cpu"))
+
+
+# ------------------------------------------------------ the mesh on the card
+
+def test_every_kernel_wrapper_launches_under_its_inputs_device(card,
+                                                               monkeypatch):
+    """Each wrapper's C call runs with its input's device current
+    (``kernels.launch``): the current device is read inside every call to
+    the kernel library. One card cannot show a launch on a second GPU;
+    tests/test_torch_mesh.py holds the guard itself with a fake library."""
+    real = kernels.library()
+    seen = []
+
+    class Spy:
+        def __getattr__(self, entry):
+            fn = getattr(real, entry)
+
+            def call(*args):
+                seen.append((entry, torch.cuda.current_device()))
+                return fn(*args)
+            return call
+
+    monkeypatch.setattr(kernels, "library", Spy)
+    with torch.no_grad():
+        for name, key, call in _grad_cases(card):
+            n, before = kernels.LAUNCHES[key], len(seen)
+            call(False)
+            assert kernels.LAUNCHES[key] > n, name
+            launched = [d for e, d in seen[before:]
+                        if not e.endswith(("_slots", "_blocks_per_sm"))]
+            assert launched and all(
+                d == (card.index or 0) for d in launched), (name, launched)
+    torch.cuda.synchronize()
+
+
+def _mesh_scene(tmp_path):
+    from macaque_tpu_torch.pipeline.artifacts import write_alldata
+    from macaque_tpu_torch.tools import synthetic as s
+
+    rig = s.make_test_rig(4, seed=21)
+    percam = s.synthesize_alldata(rig, s.simulate_scene(2, 96, seed=22),
+                                  seed=23)
+
+    def write(tag):
+        rd = str(tmp_path / tag)
+        for c, cam_id in enumerate(rig.camera_ids):
+            write_alldata(f"{rd}/{cam_id}", percam[c],
+                          np.arange(96, dtype=np.int32))
+        return rd
+    return rig, write
+
+
+def test_steps_2_to_4_under_a_four_entry_mesh_match_no_mesh(card, tmp_path):
+    """tests/test_multichip.py's scene and bounds on the card (float32):
+    steps 2-4 under four entries of ``cuda:0`` against ``mesh=None`` at the
+    JAX test's converged budget: equal bcombs, kp2d within 1e-9, kp3d
+    within 2 mm with the same finite pattern."""
+    from macaque_tpu_torch.core.mesh import make_mesh
+    from macaque_tpu_torch.pipeline.artifacts import read_pickle
+    from macaque_tpu_torch.pipeline.step2 import run_step2
+    from macaque_tpu_torch.pipeline.step3 import run_step3
+    from macaque_tpu_torch.pipeline.step4 import run_step4
+
+    rig, write = _mesh_scene(tmp_path)
+    budget = dict(lm_iters=100, cg_iters=300, cg_rtol=1e-4)
+    rd = {}
+    for tag, mesh in (("single", None),
+                      ("mesh", make_mesh(devices=[card] * 4))):
+        rd[tag] = write(tag)
+        run_step2(rd[tag], rig, mesh=mesh)
+        run_step3(rd[tag], rig, mesh=mesh)
+        run_step4(rd[tag], rig, mesh=mesh, refine_overrides=budget)
+    mk = {t: read_pickle(f"{rd[t]}/match_keyframe.pickle") for t in rd}
+    assert len(mk["single"]) == len(mk["mesh"]) > 3
+    for a, b in zip(mk["single"], mk["mesh"]):
+        assert ({tuple(x.tolist()) for x in a["bcomb"]}
+                == {tuple(x.tolist()) for x in b["bcomb"]})
+    k2 = {t: np.asarray(read_pickle(f"{rd[t]}/kp2d.pickle")) for t in rd}
+    np.testing.assert_array_equal(np.isnan(k2["mesh"]), np.isnan(k2["single"]))
+    ok = ~np.isnan(k2["single"])
+    np.testing.assert_allclose(k2["mesh"][ok], k2["single"][ok], rtol=0,
+                               atol=1e-9)
+    k3 = {t: read_pickle(f"{rd[t]}/kp3d.pickle")["kp3d"] for t in rd}
+    fin = np.isfinite(k3["single"])
+    np.testing.assert_array_equal(np.isfinite(k3["mesh"]), fin)
+    assert fin.any()
+    assert np.abs(k3["mesh"][fin] - k3["single"][fin]).max() < 2.0
+
+
+def test_perception_under_a_four_entry_mesh_matches_no_mesh(card):
+    """The small perception of ``_small_perception`` (bf16 detector, float32
+    pose on the card) under four entries of ``cuda:0`` against
+    ``mesh=None`` on 6 frames: boxes within 0.05 px, scores within 1e-4,
+    equal labels (tests/test_multichip.py's bounds); the pose's NaN
+    pattern equal, keypoint scores within 1e-4, keypoints within 0.05 px
+    where their score reaches 0.3 and at least 90 % of all joints within
+    0.05 px: the random-weight pose's heatmaps are nearly flat, and a
+    batch of another size (another cuBLAS algorithm) moves the argmax of
+    a few low-score joints (tests/test_torch_run2d.py's rule)."""
+    from macaque_tpu_torch.core.mesh import make_mesh
+    from macaque_tpu_torch.pipeline.perception import TorchPerception
+
+    single = _small_perception(card)
+    sharded = TorchPerception(single.detector_model, single.pose_model,
+                              single.id_model, max_det=4, det_target=128,
+                              mesh=make_mesh(devices=[card] * 4))
+    frames = np.random.default_rng(0).integers(0, 255, (6, 96, 128, 3),
+                                               dtype=np.uint8)
+    b0, s0 = single.detect(frames)
+    b1, s1 = sharded.detect(frames)
+    np.testing.assert_allclose(s1, s0, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(b1, b0, rtol=0, atol=0.05)
+    valid = s0 > 0.5
+    k0, k1 = single.pose(frames, b0, valid), sharded.pose(frames, b0, valid)
+    np.testing.assert_array_equal(np.isnan(k1), np.isnan(k0))
+    assert valid.any()
+    np.testing.assert_allclose(k1[valid][..., 2], k0[valid][..., 2], rtol=0,
+                               atol=1e-4)
+    sure = k0[..., 2] >= 0.3
+    np.testing.assert_allclose(k1[sure][:, :2], k0[sure][:, :2], rtol=0,
+                               atol=0.05)
+    moved = np.abs(k1[valid][..., :2] - k0[valid][..., :2]).max(-1)
+    assert np.mean(moved <= 0.05) >= 0.9
+    (l0, c0), (l1, c1) = (p.classify(frames, b0, valid)
+                          for p in (single, sharded))
+    np.testing.assert_array_equal(l1, l0)
+    np.testing.assert_allclose(c1, c0, rtol=0, atol=1e-4)
+
+
+def test_pipeline_bench_serving_tier_on_the_card(card, tmp_path, monkeypatch):
+    """``tools/pipeline_bench.run`` on the card at 26 frames (the shortest
+    scene with keyframes and tracks) with the ``serving`` tier alone: the
+    JAX tool's keys, the device's name, and the tier's K1, K2 and K5b
+    launches."""
+    from macaque_tpu_torch.tools import pipeline_bench
+
+    for k, v in (("BENCH_STEP1_REAL", "1"), ("BENCH_STEP1_PARITY", "0"),
+                 ("BENCH_STEP1_FAST", "0")):
+        monkeypatch.setenv(k, v)
+    before = dict(kernels.LAUNCHES)
+    out = pipeline_bench.run(n_frame=26, n_cam=4, render=False,
+                             root=str(tmp_path))
+    assert out["camera_frames"] == 104 and out["step1_real_s"] > 0
+    assert "e2e_measured_cf_s" in out and "step1_parity_s" not in out
+    assert torch.cuda.get_device_name(card).split()[0] in out["device"]
+    for k in ("packed_attention", "roi_align_windowed", "quant_int8_matmul"):
+        assert kernels.LAUNCHES[k] > before[k], k

@@ -267,7 +267,7 @@ def test_run_pipeline_refuses_a_mesh_and_needs_a_device(tmp_path):
     rig = tsyn.make_test_rig(4)
     cfg = PipelineConfig(data_name="x", results_dir=str(tmp_path / "r"),
                          raw_data_dir=str(tmp_path / "v"))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="core.mesh.Mesh"):
         run_pipeline(cfg, rig, None, mesh=object(), device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

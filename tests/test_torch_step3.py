@@ -349,7 +349,7 @@ def test_run_step3_writes_the_jax_packages_pickles(tmp_path, name):
 
 def test_run_step3_refuses_a_mesh_and_needs_a_device(tmp_path):
     rig = tsyn.make_test_rig(4)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="core.mesh.Mesh"):
         ts3.run_step3(str(tmp_path), rig, mesh=object())
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -162,7 +162,7 @@ def test_run_step4_production_budget_is_as_accurate_as_jax(two_animals):
 
 def test_run_step4_refuses_a_mesh_and_needs_a_device(tmp_path):
     rig = tsyn.make_test_rig(4)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="core.mesh.Mesh"):
         ts4.run_step4(str(tmp_path), rig, mesh=object())
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
