@@ -44,7 +44,11 @@ Phases, one line each with elapsed seconds:
                ``pipeline.step3.run_step3`` on step 2's output, float32:
                its split, flow solves and trace calls; every tracklet and
                identity held against the ground truth, and the first 600
-               frames card against CPU in float64;
+               frames card against CPU in float64; then a scene whose
+               tracks break (tests/test_torch_step3.py's: 4 cameras, 2
+               animals, 200 frames), so that stitching solves flows and
+               calls ``TraceCalculator``, float32 on the card against
+               float64 on the CPU;
   7. step4   - step 4 (Viterbi 2D filter, DLT, LM-CGLS refinement)
                through ``pipeline.step4.run_step4`` on step 3's output,
                float32: its split, LM iterations, CG sweeps, host reads and
@@ -1680,10 +1684,11 @@ def held_copy(root, dst, n_frame, files=(), rows=None):
     return dst
 
 
-def check_traces(rig, rows, n_frame):
+def check_traces(rig, rows, n_frame, n_animal=4, f32_bound_mm=None):
     """``TraceCalculator`` card against CPU in float64 (within 1e-9 of the
-    largest value) and the float32 card against the float64 CPU, on every
-    animal's whole-rig trace over the first ``n_frame`` frames."""
+    largest value) and the float32 card against the float64 CPU (within
+    ``f32_bound_mm`` where given), on every animal's whole-rig trace over
+    the first ``n_frame`` frames."""
     from macaque_tpu_torch.pipeline.step3 import TraceCalculator
 
     rows = [rows[c][:n_frame] for c in rig.camera_ids]
@@ -1694,18 +1699,119 @@ def check_traces(rig, rows, n_frame):
         tc = TraceCalculator(rig, device=dev, dtype=dt)
         out[(dev, dt)] = np.stack([
             tc.trace(rows, np.full((n_frame, rig.n_cam), a + 1), frames)
-            for a in range(4)])
+            for a in range(n_animal)])
     want = out[("cpu", torch.float64)]
     scale = np.nanmax(np.abs(want))
     d64 = np.nanmax(np.abs(out[("cuda", torch.float64)] - want)) / scale
     d32 = np.nanmax(np.abs(out[("cuda", torch.float32)] - want))
     same = np.array_equal(np.isnan(out[("cuda", torch.float64)]),
                           np.isnan(want))
-    log(f"step3: TraceCalculator on 4 x {n_frame} frames, card against CPU "
-        f"in float64: rel {d64:.3e}, NaN pattern equal {same}; float32 card "
-        f"against float64 CPU: {d32:.4f} mm")
+    log(f"step3: TraceCalculator on {n_animal} x {n_frame} frames, card "
+        f"against CPU in float64: rel {d64:.3e}, NaN pattern equal {same}; "
+        f"float32 card against float64 CPU: {d32:.4f} mm"
+        + (f" (bound {f32_bound_mm})" if f32_bound_mm is not None else ""))
     if not (same and d64 <= 1e-9):
         raise AssertionError("step3 traces differ between the card and the CPU")
+    if f32_bound_mm is not None and not d32 <= f32_bound_mm:
+        raise AssertionError("step3 float32 traces differ between the card "
+                             "and the CPU")
+
+
+STEP3_PICKLES = ("track.pickle", "collar_id.pickle", "kp2d.pickle")
+
+
+def step3_pickles(d):
+    from macaque_tpu_torch.pipeline.artifacts import read_pickle
+
+    return [read_pickle(os.path.join(d, f)) for f in STEP3_PICKLES]
+
+
+def same_step3(a, b):
+    """Two runs' ``STEP3_PICKLES`` equal: the tracklet keys, every track and
+    collar-id array, and kp2d with its NaNs."""
+    (ta, ca, ka), (tb, cb, kb) = a, b
+    return (list(ta) == list(tb) and list(ca) == list(cb)
+            and all(np.array_equal(ta[k], tb[k]) for k in tb)
+            and all(np.array_equal(ca[k], cb[k]) for k in cb)
+            and np.array_equal(ka, kb, equal_nan=True))
+
+
+def broken_tracks_scene(n_frame=200):
+    """tests/test_torch_step3.py's ``_broken_tracks_scene``, built with the
+    port's synthetic tools (rows equal to the JAX generator's within
+    1e-10): 4 cameras, 2 animals; animal 1 seen by camera 0 alone for
+    frames 50-74 (its keyframe links break, a stitch edge bridges them) and
+    camera 2's 2D track ids switch once per animal."""
+    from macaque_tpu_torch.tools.synthetic import (
+        make_test_rig, simulate_scene, synthesize_alldata)
+
+    rig = make_test_rig(4, seed=0)
+    rows = synthesize_alldata(rig, simulate_scene(2, n_frame, seed=1), seed=2)
+    rng = np.random.default_rng(7)
+    for a in range(2):
+        cut = int(rng.integers(20, 180))
+        for f in range(cut, n_frame):
+            for d in rows[2][f]:
+                if d[0] == a + 1:
+                    d[0] = 100 + 10 * a + 2
+    for f in range(50, 75):
+        for c in range(1, 4):
+            rows[c][f] = [d for d in rows[c][f] if d[0] not in (2, 110 + c)]
+    return rig, rows
+
+
+def check_step3_broken(root, trace_bound_mm=0.05):
+    """Step 3 where tracks break, so that stitching runs: one step-2
+    ``match_keyframe.pickle`` (CPU, float64) under the broken-tracks scene,
+    ``run_step3`` on the card in float32 and on the CPU in float64. The card
+    must solve flows and call ``TraceCalculator``; the two runs must write
+    equal ``STEP3_PICKLES``; and every animal's trace, float32 card against
+    float64 CPU, must agree within ``trace_bound_mm`` (float32 rounding of
+    ~700 mm coordinates through the DLT: 1.2e-3 mm on the CPU's
+    float32)."""
+    import shutil
+
+    from macaque_tpu_torch.pipeline.artifacts import write_alldata
+    from macaque_tpu_torch.pipeline.step2 import run_step2
+    from macaque_tpu_torch.pipeline.step3 import run_step3
+
+    rig, rows = broken_tracks_scene()
+    n_frame = len(rows[0])
+    dirs = {dev: os.path.join(root, f"broken3_{dev}")
+            for dev in ("cuda", "cpu")}
+    for d in dirs.values():
+        for c, cam_id in enumerate(rig.camera_ids):
+            write_alldata(os.path.join(d, cam_id), rows[c],
+                          np.arange(n_frame, dtype=np.int32))
+    run_step2(dirs["cpu"], rig, device="cpu", dtype=torch.float64)
+    shutil.copy(os.path.join(dirs["cpu"], "match_keyframe.pickle"),
+                dirs["cuda"])
+    got, times, walls = {}, {}, {}
+    for dev, dt in (("cuda", torch.float32), ("cpu", torch.float64)):
+        times[dev] = {}
+        t = time.perf_counter()
+        run_step3(dirs[dev], rig, redo=True, device=dev, dtype=dt,
+                  times=times[dev])
+        walls[dev] = time.perf_counter() - t
+        got[dev] = step3_pickles(dirs[dev])
+    equal = same_step3(got["cuda"], got["cpu"])
+    card = times["cuda"]
+    log(f"step3 broken-tracks scene ({rig.n_cam} cameras, 2 animals, "
+        f"{n_frame} frames): card float32 run_step3 {walls['cuda']:.3f}s, "
+        f"flow {card['flow_solves']} solves in {card['flow']:.4f}s, "
+        f"TraceCalculator {card['trace_calls']} device calls in "
+        f"{card['trace']:.4f}s, stitch {card['stitch']:.4f}s; CPU float64 "
+        f"{walls['cpu']:.3f}s ({times['cpu']['flow_solves']} solves, "
+        f"{times['cpu']['trace_calls']} trace calls); {len(got['cpu'][0])} "
+        f"tracklets, track/collar_id/kp2d equal {equal}")
+    if not (card["flow_solves"] > 0 and card["trace_calls"] > 0):
+        raise AssertionError("step3 broken-tracks scene: the card solved no "
+                             "flow or made no trace call")
+    if not equal:
+        raise AssertionError("step3 broken-tracks scene differs between the "
+                             "card (float32) and the CPU (float64)")
+    check_traces(rig, dict(zip(rig.camera_ids, rows)), n_frame, n_animal=2,
+                 f32_bound_mm=trace_bound_mm)
 
 
 def phase_step3(root, rig, kp3d, n_held=STEP3_HELD):
@@ -1715,7 +1821,8 @@ def phase_step3(root, rig, kp3d, n_held=STEP3_HELD):
     device calls and seconds; check (d) against the ground truth; (e) the
     first ``n_held`` frames through step 3 on the card and on the CPU,
     both float64, writing equal ``track.pickle``, ``collar_id.pickle`` and
-    ``kp2d.pickle``; and the traces card against CPU."""
+    ``kp2d.pickle``; the traces card against CPU; and the broken-tracks
+    scene, where stitching runs (``check_step3_broken``)."""
     from macaque_tpu_torch import kernels
     from macaque_tpu_torch.pipeline.artifacts import read_pickle
     from macaque_tpu_torch.pipeline.step3 import run_step3
@@ -1749,18 +1856,14 @@ def phase_step3(root, rig, kp3d, n_held=STEP3_HELD):
         d = held_copy(root, os.path.join(root, f"held3_{dev}"), n_held,
                       ("match_keyframe.pickle",), rows)
         run_step3(d, rig, redo=True, device=dev, dtype=torch.float64)
-        got[dev] = [read_pickle(os.path.join(d, f)) for f in
-                    ("track.pickle", "collar_id.pickle", "kp2d.pickle")]
-    (tg, cg, kg), (tc, cc, kc) = got["cuda"], got["cpu"]
-    equal = (list(tg) == list(tc) and list(cg) == list(cc)
-             and all(np.array_equal(tg[k], tc[k]) for k in tc)
-             and all(np.array_equal(cg[k], cc[k]) for k in cc)
-             and np.array_equal(kg, kc, equal_nan=True))
-    log(f"step3 card against CPU, float64, {n_held} frames: {len(tc)} "
-        f"tracklets, track/collar_id/kp2d equal {equal}")
+        got[dev] = step3_pickles(d)
+    equal = same_step3(got["cuda"], got["cpu"])
+    log(f"step3 card against CPU, float64, {n_held} frames: "
+        f"{len(got['cpu'][0])} tracklets, track/collar_id/kp2d equal {equal}")
     if not equal:
         raise AssertionError("step3 differs between the card and the CPU")
     check_traces(rig, rows, n_held)
+    check_step3_broken(root)
     return wall
 
 
