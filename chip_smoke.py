@@ -48,7 +48,11 @@ Phases, one line each with elapsed seconds:
                tracks break (tests/test_torch_step3.py's: 4 cameras, 2
                animals, 200 frames), so that stitching solves flows and
                calls ``TraceCalculator``, float32 on the card against
-               float64 on the CPU;
+               float64 on the CPU; then its trim scene (8 cameras, 4
+               animals, 60 frames, two animals in two pieces each), so
+               that ``trim_tracklets`` cuts, then ``build_stitch_graph``
+               and ``stitch_tracklets`` on the trimmed set, float32 on the
+               card against float64 on the CPU;
   7. step4   - step 4 (Viterbi 2D filter, DLT, LM-CGLS refinement)
                through ``pipeline.step4.run_step4`` on step 3's output,
                float32: its split, LM iterations, CG sweeps, host reads and
@@ -124,7 +128,9 @@ Phases, one line each with elapsed seconds:
                render off, with the ``serving`` real tier alone (K1, K2
                and K5b counted), and one cheap variant list of each probe
                (``int8_probe`` micro on fc2, ``roialign_probe`` at 128,
-               ``trunk_probe`` map1; ``remat`` refused).
+               ``trunk_probe`` map1; ``remat`` refused), and
+               ``tools/perf_tables.py`` rendering a fixed line that names
+               the card into a temporary, marked README.md and PERF.md.
 Steps 2-4, the tracker, the trainers, the calibration and the session
 tools run no hand-written kernel (the JAX package runs them as plain XLA
 or host code); a step phase runs the step phases before it, on one scene.
@@ -1814,6 +1820,86 @@ def check_step3_broken(root, trace_bound_mm=0.05):
                  f32_bound_mm=trace_bound_mm)
 
 
+def trim_scene(n_frame=60):
+    """tests/test_torch_step3.py's trim scene, built with the port's
+    synthetic tools: 8 cameras, 4 animals, ``n_frame`` frames, and six
+    tracklets of whole-rig track ids, animal 0 in two pieces that overlap
+    (frames 0-35 and 30-59), animal 2 in two pieces with a gap (0-25 and
+    27-59), animals 1 and 3 whole; and their collar identities (animal 3
+    unassigned, animal 2's first piece unknown)."""
+    from macaque_tpu_torch.tools.synthetic import (
+        make_test_rig, simulate_scene, synthesize_alldata)
+
+    rig = make_test_rig(8, seed=0)
+    rows = synthesize_alldata(rig, simulate_scene(4, n_frame, seed=1), seed=2)
+    pieces = [(0, 0, 35), (0, 30, 59), (1, 0, 59), (2, 0, 25), (2, 27, 59),
+              (3, 0, 59)]
+    trk, cid = {}, {}
+    for k, (a, lo, hi) in enumerate(pieces):
+        trk[k] = -np.ones((n_frame, rig.n_cam), int)
+        trk[k][lo:hi + 1] = a + 1
+        cid[k] = np.full(n_frame, a if a < 3 else -1)
+    cid[3][:] = -1
+    return rig, rows, trk, cid
+
+
+def check_step3_trim(edge_bound_mm=0.05):
+    """Step 3's trims on the card: ``trim_tracklets`` with a
+    ``TraceCalculator`` on the card in float32 and on the CPU in float64 on
+    the trim scene (``trim_scene``), then ``build_stitch_graph`` and
+    ``stitch_tracklets`` on the trimmed set. The card's trim must cut at
+    least one tracklet; the trimmed tracklets and the stitched result must
+    equal the CPU's; and the stitch edges (3D jump distances in mm, x0.01
+    where the identities agree) must agree within ``edge_bound_mm``, the
+    bound ``check_step3_broken`` holds the traces to (float32 rounding of
+    ~700 mm coordinates through the DLT is ~1e-3 mm)."""
+    import copy
+
+    from macaque_tpu_torch.pipeline.step3 import (
+        TraceCalculator, build_stitch_graph, stitch_tracklets, trim_tracklets)
+
+    rig, rows, base, cid = trim_scene()
+    n_frame = len(rows[0])
+    got = {}
+    for dev, dt in (("cuda", torch.float32), ("cpu", torch.float64)):
+        tc = TraceCalculator(rig, device=dev, dtype=dt)
+        t = time.perf_counter()
+        trimmed = trim_tracklets(copy.deepcopy(base), rows, n_frame, tc)
+        t_trim = time.perf_counter() - t
+        edges = build_stitch_graph(trimmed, cid, rows, n_frame, tc)
+        stitched = stitch_tracklets(copy.deepcopy(trimmed), cid, rows, n_frame,
+                                    tc)
+        got[dev] = (trimmed, edges, stitched, t_trim, tc.calls)
+    (trim_c, edges_c, (trk_c, info_c), t_c, calls_c) = got["cuda"]
+    (trim_h, edges_h, (trk_h, info_h), _, _) = got["cpu"]
+    cut = {k: int((base[k] >= 0).any(1).sum() - (trim_c[k] >= 0).any(1).sum())
+           for k in base}
+    same_trim = (list(trim_c) == list(trim_h) and all(
+        np.array_equal(trim_c[k], trim_h[k]) for k in trim_h))
+    same_stitch = (list(trk_c) == list(trk_h) and all(
+        np.array_equal(trk_c[k], trk_h[k]) for k in trk_h)
+        and info_c == info_h)
+    same_edges = (edges_c.shape == edges_h.shape
+                  and np.array_equal(edges_c[:, :2], edges_h[:, :2]))
+    d_edge = (float(np.max(np.abs(edges_c[:, 2] - edges_h[:, 2])))
+              if same_edges and len(edges_h) else float("nan"))
+    log(f"step3 trims ({rig.n_cam} cameras, 4 animals, {n_frame} frames, "
+        f"{len(base)} tracklets): card float32 trim_tracklets {t_c:.3f}s, "
+        f"frames cut {cut}; {len(edges_c)} stitch edges, card against CPU "
+        f"float64 within {d_edge:.6f} mm (bound {edge_bound_mm}); "
+        f"{calls_c} TraceCalculator device calls; {len(trk_c)} tracklets "
+        f"after stitching; trimmed equal {same_trim}, stitched equal "
+        f"{same_stitch}")
+    if not any(v > 0 for v in cut.values()):
+        raise AssertionError("step3 trims: the card's trim cut no tracklet")
+    if not (same_trim and same_stitch and same_edges and len(edges_h)):
+        raise AssertionError("step3 trims: the card (float32) differs from "
+                             "the CPU (float64)")
+    if not d_edge <= edge_bound_mm:
+        raise AssertionError("step3 trims: stitch edges differ between the "
+                             "card and the CPU")
+
+
 def phase_step3(root, rig, kp3d, n_held=STEP3_HELD):
     """Step 3 (cross-frame tracklet graph) through
     ``pipeline.step3.run_step3`` on the card in float32, on the step-2
@@ -1822,7 +1908,8 @@ def phase_step3(root, rig, kp3d, n_held=STEP3_HELD):
     first ``n_held`` frames through step 3 on the card and on the CPU,
     both float64, writing equal ``track.pickle``, ``collar_id.pickle`` and
     ``kp2d.pickle``; the traces card against CPU; and the broken-tracks
-    scene, where stitching runs (``check_step3_broken``)."""
+    scene, where stitching runs (``check_step3_broken``); and the trim
+    scene, where trims cut (``check_step3_trim``)."""
     from macaque_tpu_torch import kernels
     from macaque_tpu_torch.pipeline.artifacts import read_pickle
     from macaque_tpu_torch.pipeline.step3 import run_step3
@@ -1864,6 +1951,7 @@ def phase_step3(root, rig, kp3d, n_held=STEP3_HELD):
         raise AssertionError("step3 differs between the card and the CPU")
     check_traces(rig, rows, n_held)
     check_step3_broken(root)
+    check_step3_trim()
     return wall
 
 
@@ -3732,12 +3820,111 @@ def check_probes():
         raise AssertionError("tools (b): trunk_probe remat did not raise")
 
 
+# a fixed bench.py-shaped line (made-up numbers, not a measurement) for
+# ``check_perf_tables``; the card's name goes where pipeline_bench puts it
+PERF_LINE = {
+    "metric": "e2e_camera_frames_per_sec_per_chip", "value": 10.0,
+    "detail": {
+        "kernel_cf_s": 20.0, "kernel_cf_s_int8": 21.0,
+        "kernel_cf_s_serving": 22.0, "kernel_cf_s_fast": 23.0,
+        "kernel_ms_per_chunk": {"det": 500.0, "pose": 300.0, "id": 20.0,
+                                "tri": 0.5},
+        "det_fast_ms": 450.0, "det_640_ms": 400.0, "pose_int8_ms": 280.0,
+        "pose_noflip_int8_ms": 150.0,
+        "pipeline": {"camera_frames": 480,
+                     "stages_s": {"step1_host": 2.0, "step4_3d": 3.0},
+                     "pipeline_rest_s": 6.0, "pipeline_rest_s_per_cf": 0.0125},
+        "tier_note": "value = parity-semantics additive e2e"}}
+
+
+# Stand-ins for the two files ``perf_tables.main()`` rewrites: README.md with
+# the JAX tool's ``BENCH`` block beside the port's, PERF.md with the port's.
+MARKED_FILES = {
+    "README.md": ("# README\n\n<!-- BENCH:START -->\nThe JAX tool's block, "
+                  "which the port's tool leaves as it is.\n"
+                  "<!-- BENCH:END -->\n\n<!-- TORCH_BENCH:START -->\n"
+                  "No line of the card rendered yet.\n"
+                  "<!-- TORCH_BENCH:END -->\n"),
+    "PERF.md": ("# PERF\n\n<!-- TORCH_BENCH:START -->\n"
+                "No line of the card rendered yet.\n"
+                "<!-- TORCH_BENCH:END -->\n"),
+}
+
+
+def check_perf_tables():
+    """(c) ``tools/perf_tables.py`` on the card's machine: ``PERF_LINE``
+    with the card's name and power limit (``pipeline_bench.device_name``)
+    rendered by its ``main()`` into a temporary README.md and PERF.md
+    written here (``MARKED_FILES``), so the check reads no document of the
+    checkout. Each file's ``TORCH_BENCH`` block must be the tool's block and
+    name the card, README's ``BENCH`` block must stay as it was, and the
+    same line naming the CPU must be refused."""
+    import copy
+    import tempfile
+
+    from macaque_tpu_torch.tools import perf_tables, pipeline_bench
+
+    card = pipeline_bench.device_name("cuda")
+    line = copy.deepcopy(PERF_LINE)
+    line["detail"]["pipeline"]["device"] = card
+    header = f"| tier (semantics) | camera-frames/s (1x {card}) |"
+    files = ("README.md", "PERF.md")
+    blocks = (perf_tables.readme_block(line, "line.json"),
+              perf_tables.arch_block(line, "line.json"))
+    saved = perf_tables.repo_root
+    with tempfile.TemporaryDirectory(dir=REPO,
+                                     prefix=".chip_smoke_tools_") as root:
+        for f in files:
+            with open(os.path.join(root, f), "w") as fh:
+                fh.write(MARKED_FILES[f])
+        path = os.path.join(root, "line.json")
+        with open(path, "w") as fh:
+            json.dump(line, fh)
+        perf_tables.repo_root = lambda: root
+        try:
+            perf_tables.main(["--bench", path])
+            line["detail"]["pipeline"]["device"] = "cpu"
+            with open(path, "w") as fh:
+                json.dump(line, fh)
+            try:
+                perf_tables.main(["--bench", path])
+            except SystemExit as e:
+                refused = str(e)
+            else:
+                refused = None
+        finally:
+            perf_tables.repo_root = saved
+        texts = {}
+        for f in files:
+            with open(os.path.join(root, f)) as fh:
+                texts[f] = fh.read()
+
+    def between(text, marker):
+        start, end = f"<!-- {marker}:START -->\n", f"\n<!-- {marker}:END -->"
+        return text.split(start)[1].split(end)[0]
+
+    bench_kept = between(MARKED_FILES["README.md"], "BENCH") == between(
+        texts["README.md"], "BENCH")
+    rendered = all(between(texts[f], "TORCH_BENCH") == b
+                   for f, b in zip(files, blocks))
+    log(f"tools (c): perf_tables rendered a line of {card!r} into a "
+        f"marked README.md and PERF.md: blocks equal {rendered}, header "
+        f"names the card {header in texts['README.md']}, BENCH block kept "
+        f"{bench_kept}; "
+        f"a CPU line refused: {refused}")
+    if not (rendered and header in texts["README.md"] and card in blocks[1]
+            and bench_kept and refused):
+        raise AssertionError("tools (c): perf_tables did not render the "
+                             "card's line as it should")
+
+
 def phase_tools():
-    """The port's benchmark tool and probes on the card. Returns the
-    pipeline_bench serving tier's launches."""
+    """The port's benchmark tool and probes on the card, and the table
+    renderer. Returns the pipeline_bench serving tier's launches."""
     t0 = time.perf_counter()
     launches = check_pipeline_bench()
     check_probes()
+    check_perf_tables()
     log(f"tools: phase {time.perf_counter() - t0:.1f}s")
     return launches
 

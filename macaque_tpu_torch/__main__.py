@@ -96,6 +96,8 @@ def parser() -> argparse.ArgumentParser:
         if name == "pipeline":
             sp.add_argument("--weights", default="./model")
             sp.add_argument("--fps", type=float, default=24.0)
+        if name != "render":
+            add_device(sp, "stage")
 
     sp = sub.add_parser("validate")
     sp.add_argument("kp3d_pickle")
@@ -233,25 +235,27 @@ def main(argv=None):
         from macaque_tpu_torch.pipeline.weights import build_torch_perception
 
         run_step1(args.data, args.results, args.raw,
-                  build_torch_perception(args.weights), fps=args.fps,
-                  redo=args.redo)
+                  build_torch_perception(args.weights, args.device),
+                  fps=args.fps, redo=args.redo)
     elif args.cmd == "step2":
         from macaque_tpu_torch.pipeline.step2 import run_step2
 
         rig, cfg = rig_and_cfg()
-        run_step2(result_dir, rig, cfg.cross_view, redo=args.redo)
+        run_step2(result_dir, rig, cfg.cross_view, redo=args.redo,
+                  device=args.device)
     elif args.cmd == "step3":
         from macaque_tpu_torch.pipeline.step3 import run_step3
 
         rig, cfg = rig_and_cfg()
-        run_step3(result_dir, rig, cfg.cross_frame, redo=args.redo)
+        run_step3(result_dir, rig, cfg.cross_frame, redo=args.redo,
+                  device=args.device)
     elif args.cmd == "step4":
         from macaque_tpu_torch.pipeline.step4 import run_step4
 
         rig, cfg = rig_and_cfg()
         run_step4(result_dir, rig, pipeline_cfg=cfg,
                   filter_cfg=cfg.filter, tri_cfg=cfg.triangulation,
-                  redo=args.redo)
+                  redo=args.redo, device=args.device)
     elif args.cmd == "render":
         from macaque_tpu_torch.tools.visualize import render_overlay
 
@@ -261,7 +265,7 @@ def main(argv=None):
     elif args.cmd == "pipeline":
         from macaque_tpu_torch.demo import proc
 
-        proc(args.data, args.fps, args.results, None, args.config,
+        proc(args.data, args.fps, args.results, args.device, args.config,
              args.raw)
     elif args.cmd == "validate":
         from macaque_tpu_torch.tools.validation import validate_kp3d_file

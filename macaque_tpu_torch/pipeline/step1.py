@@ -365,6 +365,9 @@ if __name__ == "__main__":
     parser.add_argument("--start", type=float)
     parser.add_argument("--end", type=float)
     parser.add_argument("--redo", action="store_true")
+    parser.add_argument("--device", default=None,
+                        help="torch device of the networks and the tracker "
+                             "(the card when not given; 'cpu' for the CPU)")
     args = parser.parse_args()
 
     interval = None
@@ -373,11 +376,12 @@ if __name__ == "__main__":
 
     from macaque_tpu_torch.pipeline.weights import build_torch_perception
 
+    # every camera runs on the perception's device
     run_step1(
         data_name=args.data,
         results_root=args.res_root,
         raw_root=args.raw_root,
-        perception=build_torch_perception(args.weights),
+        perception=build_torch_perception(args.weights, args.device),
         fps=args.fps,
         t_intv=interval,
         redo=args.redo,

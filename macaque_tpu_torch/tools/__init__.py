@@ -2,8 +2,10 @@
 the 3D tracking validation, the anipose session tools, the COCO-style
 evaluation (``evaluation``, ``coco_eval``), the 2D-only video tool
 (``run2d``), the tracker sweep (``sweep``), the pipeline benchmark
-(``pipeline_bench``) and the card's probes (``int8_probe``,
-``roialign_probe``, ``trunk_probe``).
+(``pipeline_bench``), the card's probes (``int8_probe``,
+``roialign_probe``, ``trunk_probe``) and the renderer of the README and
+PERF.md tables from a benchmark line measured on the card
+(``perf_tables``).
 
 Where a tool reads or writes files with cv2, pandas, h5py or matplotlib,
 its array work is a function of its own that needs none of them, and that

@@ -48,7 +48,8 @@ PORTED = ("step1", "step2", "step3", "step4", "render", "pipeline",
           "calibrate")
 # the subcommands whose work reaches a tensor: the JAX surface, then
 # ``--device`` last
-WITH_DEVICE = ("triangulate-session", "project-2d", "tracking-errors",
+WITH_DEVICE = ("step1", "step2", "step3", "step4", "pipeline",
+               "triangulate-session", "project-2d", "tracking-errors",
                "calibration-errors", "filter-2d", "train-autoencoder",
                "calibrate-session", "extract-frames", "pose-videos",
                "calibrate", "pose2d", "eval-coco", "sweep")
@@ -350,6 +351,140 @@ def test_cli_subcommands_are_the_jax_clis():
             assert surface[-1][:3] == (["--device"], "device", None), name
             surface = surface[:-1]
         assert surface == _surface(want[name]), name
+
+
+def test_cli_steps_2_to_4_run_on_the_device_they_are_given(runs, tmp_path):
+    """``step2``, ``step3`` and ``step4`` with ``--device cpu`` on the
+    runner's scene, from its step-1 rows and a calibration written as the
+    reference's ``config.yaml`` and h5 pair: the keyframes' persons and the
+    tracklets of the float64 run, and each animal's ``kp3d`` median error
+    within 1 mm of it (float32 against float64, the refinement amplifying
+    rounding, ROADMAP.md §3)."""
+    import shutil
+
+    from macaque_tpu_torch.__main__ import main
+
+    results = tmp_path / "results"
+    for cam in runs["rig"].camera_ids:
+        shutil.copytree(os.path.join(runs["trd"], cam), results / "synth" / cam)
+    config = runs["rig"].to_h5(str(tmp_path / "calib"))
+    for step in ("step2", "step3", "step4"):
+        args = [step, "--data", "synth", "--results", str(results),
+                "--config", config]
+        if not torch.cuda.is_available():       # no --device: the card
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                main(args)
+        main(args + ["--device", "cpu"])
+    rd = str(results / "synth")
+    got = read_pickle(f"{rd}/match_keyframe.pickle")
+    want = read_pickle(f"{runs['trd']}/match_keyframe.pickle")
+    assert [k["frame"] for k in got] == [k["frame"] for k in want] and got
+    for a, b in zip(got, want):
+        assert [x.tolist() for x in a["bcomb"]] == \
+            [x.tolist() for x in b["bcomb"]]
+    for f in ("track.pickle", "collar_id.pickle"):
+        got, want = read_pickle(f"{rd}/{f}"), read_pickle(f"{runs['trd']}/{f}")
+        assert list(got) == list(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+    kp3d = read_pickle(f"{rd}/kp3d.pickle")["kp3d"]
+    want = read_pickle(f"{runs['trd']}/kp3d.pickle")["kp3d"]
+    assert kp3d.shape == want.shape
+    T = kp3d.shape[1]                        # up to the last keyframe
+    for a in range(2):
+        err = [np.nanmedian(np.linalg.norm(k[a] - runs["truth"][a, :T],
+                                           axis=-1)) for k in (kp3d, want)]
+        assert err[0] < 30.0 and abs(err[0] - err[1]) < 1.0, (a, err)
+
+
+def _step1_flags(path):
+    """(flag, keywords) of every ``add_argument`` in the ``__main__`` block
+    of ``path``, the keywords as source."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    block = next(n for n in tree.body if isinstance(n, ast.If)
+                 and "__main__" in ast.unparse(n.test))
+    return [(n.args[0].value, {k.arg: ast.unparse(k.value) for k in n.keywords
+                               if k.arg != "help"})
+            for n in ast.walk(block) if isinstance(n, ast.Call)
+            and getattr(n.func, "attr", None) == "add_argument"]
+
+
+def test_step1_module_flags_are_the_jax_modules():
+    """``python -m macaque_tpu_torch.pipeline.step1`` takes the JAX
+    module's flags (``macaque_tpu/pipeline/step1.py:350-363``), then
+    ``--device``."""
+    got = _step1_flags(os.path.join(ROOT, "macaque_tpu_torch", "pipeline",
+                                    "step1.py"))
+    want = _step1_flags(os.path.join(ROOT, "macaque_tpu", "pipeline",
+                                     "step1.py"))
+    assert got == want + [("--device", {"default": "None"})]
+
+
+def test_step1_module_runs_on_the_device_it_is_given(tmp_path, monkeypatch):
+    """The step-1 module through ``runpy`` with ``--device cpu`` on a tiny
+    RGBA store: the device reaches ``build_torch_perception``, which gives
+    tests/torch_parity.py's small-width port perception (full-width
+    checkpoints are too large for this tier), and ``alldata.json`` is
+    written with tracked animals."""
+    import runpy
+
+    from macaque_tpu_torch.pipeline import weights
+    from macaque_tpu_torch.video.imgstore import write_imgstore
+    from tests.test_torch_step1 import MAX_DET, W, _frames, _variables
+    from tests.torch_parity import tiny_perceptions
+
+    write_imgstore(str(tmp_path / "videos" / "demo.cam0"), _frames(),
+                   fourcc="RGBA")
+    _, port = tiny_perceptions(*_variables(), max_det=MAX_DET, det_target=W)
+    calls = []
+
+    def build(weights_dir, device=None, **kw):
+        calls.append((weights_dir, device, kw))
+        return port
+
+    monkeypatch.setattr(weights, "build_torch_perception", build)
+    monkeypatch.setattr(sys, "argv", [
+        "step1", "demo", "--raw_root", str(tmp_path / "videos"),
+        "--res_root", str(tmp_path / "res"), "--weights", "w",
+        "--device", "cpu"])
+    with pytest.warns(RuntimeWarning, match="found in sys.modules"):
+        runpy.run_module("macaque_tpu_torch.pipeline.step1",
+                         run_name="__main__")
+    with open(tmp_path / "res" / "demo" / "cam0" / "alldata.json") as f:
+        rows = json.load(f)
+    assert len(rows) == len(_frames()) and any(rows)
+    sys.argv.remove("--device")
+    sys.argv.remove("cpu")
+    with pytest.warns(RuntimeWarning, match="found in sys.modules"):
+        runpy.run_module("macaque_tpu_torch.pipeline.step1",
+                         run_name="__main__")
+    assert calls == [("w", "cpu", {}), ("w", None, {})]      # None: the card
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_cli_step1_and_pipeline_pass_their_device(monkeypatch, device):
+    """``step1`` hands ``--device`` to ``build_torch_perception`` and
+    ``pipeline`` to ``demo.proc``; without it both get None, the card."""
+    from macaque_tpu_torch import __main__ as cli
+    from macaque_tpu_torch import demo
+    from macaque_tpu_torch.pipeline import step1, weights
+
+    calls = []
+    monkeypatch.setattr(weights, "build_torch_perception",
+                        lambda w, d=None: calls.append(("build", w, d)) or "P")
+    monkeypatch.setattr(step1, "run_step1",
+                        lambda *a, **k: calls.append(("run_step1", a, k)))
+    monkeypatch.setattr(demo, "proc", lambda *a: calls.append(("proc", a)))
+    extra = [] if device is None else ["--device", device]
+    cli.main(["step1", "--data", "d", "--weights", "w"] + extra)
+    cli.main(["pipeline", "--data", "d", "--fps", "30"] + extra)
+    assert calls == [
+        ("build", "w", device),
+        ("run_step1", ("d", "./results3D", "./videos", "P"),
+         {"fps": 24.0, "redo": False}),
+        ("proc", ("d", 30.0, "./results3D", device, "./calib/config.yaml",
+                  "./videos"))]
 
 
 def test_cli_validate_prints_what_jax_prints(tmp_path, capsys):
