@@ -16,7 +16,9 @@ Phases, one line each with elapsed seconds:
                tensor-core kernels (K1-K4, K5b, K6) with their registers
                and spills from the build log and their resident blocks
                per SM; the fused Swin block (K6) with the parity
-               detector's own backbone weights;
+               detector's own backbone weights; K2's route also against
+               the exact RoIAlign by flat gather (``ops.roi_align_pyramid``)
+               on the RoIs inside every level's extent;
   4. main    - stage 1 (detect -> track -> pose -> ID) through
                ``pipeline.step1.process_camera`` at full model width with
                random weights, over 2 chunks of 16 frames of 2048x1536,
@@ -24,8 +26,10 @@ Phases, one line each with elapsed seconds:
                parity configuration, then the ``serving`` tier (int8 pose)
                and the ``fast`` tier (int8 pose, no flip test, 640 detector
                target), then the parity detector with the Swin window
-               attention kernel on one 16-frame chunk; each against its
-               plain path. Then the three entry points of the JAX package's
+               attention kernel on one 16-frame chunk, then the int8
+               serving detector (Swin blocks quantized, K5b at each of their
+               Dense layers) on that chunk; each against its plain path.
+               Then the three entry points of the JAX package's
                that drive the other kernels: the Swin-S trunk with every
                block fused (``nn.swin_block.swin_backbone_apply_fused``,
                K6) on one 16-frame detector chunk, against ``SwinBackbone``,
@@ -437,6 +441,7 @@ def check_roialign(gen):
         + (f"{dev:.4f} ms device (CUDA graph replay)" if why is None else
            f"CUDA graph capture refused ({why})")
         + f", plain {plain:.4f} ms, bound {b:.4f} ms ({by})")
+    check_exact_gather(feats, rois, lvl, need, strides, ms)
     # a serving / fast tier call: 16 frames x 64 RoIs, the first of a
     # frame's two 64-RoI chunks of its 128, bucket-sorted as the detector
     # sorts them
@@ -469,6 +474,85 @@ def check_roialign(gen):
                 replaces="macaque_tpu/nn/pallas_roialign.py:188",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
                 bound_by=by, library_ms=None)
+
+
+def check_exact_gather(feats, rois, lvl, need, strides, kernel_ms,
+                       chunk=256):
+    """K2's route (``roi_align_windowed``, the detector's bucket-sorted
+    256-RoI chunks) against the exact aligned RoIAlign by flat gather
+    (``ops.roi_align_pyramid``, batched), in float32 on the bf16 canvas
+    values, within 2^-6 of the gather's range (K2 rounds Ky, Kx and its
+    output to bf16). Two kinds of RoI are left out and counted, where the
+    windowed route departs from the gather by design (in the JAX package
+    too, tests/test_nn.py:446-449): a sample in (-1, 0) of its level's
+    extent (the windowed route follows mmcv's stencil clamping there, the
+    gather blends rows 0 and 1), or anywhere outside [0, extent - 1]; and a
+    RoI whose stencil the widest window (48) does not cover (its Ky, Kx
+    are clamped into the window, as in the JAX package's windowed route:
+    tests/test_torch_public_functions.py holds the two equal on such RoIs).
+    Those wide RoIs must stay at most 0.1 % of all, and are held against the
+    windowed route's plain version instead. Returns the max |windowed -
+    gather| over the RoIs held."""
+    from macaque_tpu_torch.nn.ops import (
+        _roi_level_canvas, _roi_sample_grids, roi_align_pyramid)
+    from macaque_tpu_torch.nn.roialign import (
+        WINDOW_BUCKETS, roi_align_windowed, roi_align_windowed_reference,
+        roi_window_buckets)
+
+    canvas = _roi_level_canvas(feats)
+    feats32 = [f.float() for f in feats]
+    gy, gx, Hs, Ws = _roi_sample_grids(feats, rois, lvl, 7, strides, 2)
+    interior = ((gy >= 0).all(-1) & (gy <= (Hs - 1)[..., None]).all(-1)
+                & (gx >= 0).all(-1) & (gx <= (Ws - 1)[..., None]).all(-1))
+    # bucket 0 of this two-step ladder: the widest window covers the RoI
+    widest = WINDOW_BUCKETS[-1]
+    covered = roi_window_buckets(feats, rois, lvl, 7, strides,
+                                 buckets=(widest, widest)) == 0
+    held = interior & covered
+    starts = range(0, rois.shape[1], chunk)
+    windows = [WINDOW_BUCKETS[int(need[:, c0:c0 + chunk].max())]
+               for c0 in starts]
+    route = lambda: [roi_align_windowed(  # noqa: E731
+        feats, rois[:, c0:c0 + chunk], lvl[:, c0:c0 + chunk], 7, strides,
+        window=w, canvas=canvas) for c0, w in zip(starts, windows)]
+    gather = lambda: [roi_align_pyramid(  # noqa: E731
+        feats32, rois[:, c0:c0 + chunk], lvl[:, c0:c0 + chunk], 7, strides)
+        for c0 in starts]
+    got, want = torch.cat(route(), 1), torch.cat(gather(), 1)
+    wide = interior & ~covered
+    n_wide = int(wide.sum())
+    if n_wide > 1e-3 * wide.numel():
+        raise AssertionError(f"{n_wide} of {wide.numel()} RoIs wider than the "
+                             f"{widest}-pixel window: over 0.1 %")
+    if n_wide:
+        plain = torch.cat([roi_align_windowed_reference(
+            feats, rois[:, c0:c0 + chunk], lvl[:, c0:c0 + chunk], 7, strides,
+            window=w, canvas=canvas) for c0, w in zip(starts, windows)], 1)
+        max_err(got[wide], plain[wide], f"roi_align_windowed on the {n_wide} "
+                "RoIs wider than the window, against its plain version")
+    torch.cuda.synchronize()
+    got, want = got[held].float(), want[held]
+    if not torch.isfinite(got).all() or got.shape != want.shape:
+        raise AssertionError("roi_align_windowed: malformed output against "
+                             "the gather")
+    roi_err = (got - want).abs().amax((-3, -2, -1))
+    err = roi_err.max().item()
+    span = (want.max() - want.min()).item()
+    tol = 2.0 ** -6 * span
+    route_ms = cuda_ms(route, reps=3)
+    gather_ms = cuda_ms(gather, reps=3)
+    log(f"roi_align_windowed against the exact gather (roi_align_pyramid, "
+        f"float32 on the bf16 values): {int(held.sum())} of {held.numel()} "
+        f"RoIs held; left out: {int((~interior).sum())} by the border rule, "
+        f"{n_wide} more wider than the "
+        f"{widest}-pixel window; max_abs_err {err:.3e} (tolerance {tol:.3e}, "
+        f"2^-6 of the range {span:.3e}); gather {gather_ms:.4f} ms, K2 "
+        f"{kernel_ms:.4f} ms (its route with the geometry {route_ms:.4f} ms)")
+    if not err <= tol:
+        log(f"{int((roi_err > tol).sum())} held RoIs over the tolerance")
+        raise AssertionError("roi_align_windowed disagrees with the exact "
+                             "gather")
+    return err
 
 
 # ViTPose-huge's block Dense layers on a pose chunk: 16 frames x 8 detections
@@ -1050,6 +1134,7 @@ def phase_main(det, pose, idm, pose_sd):
     check_plain_path(perception, frames[:2])
     runs.update(phase_tiers(det, pose, idm, pose_sd, store, T, frames[:2]))
     runs["k3_detector"] = phase_window_detector(det, pose, idm, frames[:CHUNK])
+    runs["det_int8"] = phase_int8_detector(frames[:CHUNK])
     return runs, perception, store, T
 
 
@@ -1234,6 +1319,121 @@ def phase_window_detector(det, pose, idm, frames):
     return launches
 
 
+def phase_int8_detector(frames):
+    """The int8 serving detector (the JAX package's ``BENCH_DET_INT8=1``):
+    Swin-S Mask R-CNN at the serving budgets, bf16, its 24 blocks' qkv,
+    proj, fc1 and fc2 quantized by ``quantize_swin_`` from a float32 state
+    dict drawn from seed 0 (a bf16 model's own weights are already
+    rounded), box head's foreground bias +6. ``detect_frames`` on one
+    16-frame chunk runs the trunk frame by frame, so K5b launches 24 x 4 x
+    16 = 1,536 times. Then 2 frames against the same model with
+    ``Int8Linear`` routed to the plain chain on the card (no K5b launch
+    there): K5b is exact, so no Swin map and no int8 activation code may
+    differ, the maps are held to 2^-6 of each map's range besides and the
+    detections through ``check_detections``. The warm chunk timed with CUDA events against the
+    bf16 serving detector of the same weights. Returns the launches."""
+    from unittest import mock
+
+    from macaque_tpu_torch import kernels
+    from macaque_tpu_torch.nn import DetectorConfig, SwinMaskRCNN, quant
+    from macaque_tpu_torch.nn.detector import detect_frames
+    from macaque_tpu_torch.nn.int8 import (
+        quant_int8_matmul_reference, quantize_rows_reference)
+    from macaque_tpu_torch.nn.preprocess import detector_input_batch
+    from macaque_tpu_torch.nn.quant import Int8Linear, quantize_swin_
+    from macaque_tpu_torch.nn.swin import SwinConfig
+
+    bf16, dev = torch.bfloat16, torch.device("cuda")
+    t = time.perf_counter()
+    torch.manual_seed(0)
+    sd = SwinMaskRCNN(DetectorConfig.serving(), device=dev).state_dict()
+
+    def serving_detector():
+        m = SwinMaskRCNN(DetectorConfig.serving(
+            swin=SwinConfig(compute_dtype=bf16), compute_dtype=bf16), device=dev)
+        m.load_state_dict(sd)
+        with torch.no_grad():
+            m.roi_head.bbox_head.fc_cls.bias[0] += 6.0     # hazard 3
+        return m
+
+    det_bf16 = serving_detector()
+    det8 = quantize_swin_(serving_detector(), sd)
+    del sd
+    if det8.backbone.cfg != SwinConfig(compute_dtype=bf16, quantize="int8"):
+        raise AssertionError(f"int8 detector: Swin config {det8.backbone.cfg}")
+    layers = [m for m in det8.modules() if isinstance(m, Int8Linear)]
+    x = detector_input_batch(torch.from_numpy(frames).to(dev).flip(-1).float())[0]
+    torch.cuda.synchronize()
+    log(f"int8 detector: {len(layers)} Int8Linear layers, built and quantized "
+        f"in {time.perf_counter() - t:.1f}s; input {tuple(x.shape)}")
+    with torch.no_grad():
+        detect_frames(det8, x[:1])                             # warm-up
+        kernels.reset_launches()
+        t = time.perf_counter()
+        out = detect_frames(det8, x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = dict(kernels.LAUNCHES)
+        log(f"int8 detector: detect_frames {len(x)} frames in {wall:.3f}s; "
+            f"launches {launches}")
+        if launches["quant_int8_matmul"] != 24 * 4 * len(x):
+            raise AssertionError("the int8 detector did not launch K5b once "
+                                 "per int8 layer, block and frame")
+        boxes, scores, valid = (o.float().cpu().numpy() if o.is_floating_point()
+                                else o.cpu().numpy() for o in out)
+        if not (np.isfinite(boxes).all() and ((scores >= 0) & (scores <= 1)).all()
+                and valid.any(1).all()):
+            raise AssertionError("int8 detector: malformed detections")
+
+        # 2 frames against the plain chain: maps, int8 codes, detections
+        seen = []
+        hooks = [m.register_forward_pre_hook(
+            lambda mod, args: seen.append(quantize_rows_reference(
+                args[0].reshape(-1, args[0].shape[-1]))[0])) for m in layers]
+        x2 = x[:2]
+        maps = det8.backbone(x2)
+        codes = seen[:]
+        seen.clear()
+        det_out = detect_frames(det8, x2)
+        seen.clear()
+        with mock.patch.object(quant, "quant_int8_matmul",
+                               quant_int8_matmul_reference):
+            before = kernels.LAUNCHES["quant_int8_matmul"]
+            maps_p = det8.backbone(x2)
+            codes_p = seen[:]
+            seen.clear()
+            det_p = detect_frames(det8, x2)
+            if kernels.LAUNCHES["quant_int8_matmul"] != before:
+                raise AssertionError("int8 detector: the plain chain launched "
+                                     "K5b (Int8Linear was not rerouted)")
+        for h in hooks:
+            h.remove()
+        n_codes = sum(c.numel() for c in codes)
+        flips = sum(int((a != b).sum()) for a, b in zip(codes, codes_p))
+        differ = sum(not torch.equal(a, b) for a, b in zip(maps, maps_p))
+        log(f"int8 detector vs its plain chain, 2 frames: {differ} of 4 maps "
+            f"differ, {flips} of {n_codes} int8 activation codes differ "
+            f"(K5b is exact: both 0 expected)")
+        if len(codes) != len(layers) or len(codes_p) != len(layers):
+            raise AssertionError("int8 detector: not every int8 layer ran")
+        if differ or flips:
+            raise AssertionError("int8 detector: K5b is not exact against "
+                                 "its plain chain")
+        check_maps(maps, maps_p, "int8 trunk vs its plain chain", 2.0 ** -6)
+        top = lambda o: (o[0].float().cpu().numpy(),  # noqa: E731
+                         torch.where(o[2], o[1], torch.zeros_like(o[1]))
+                         .float().cpu().numpy())
+        check_detections(*top(det_out), *top(det_p), path="K5b")
+        ms = cuda_ms(lambda: detect_frames(det8, x), reps=3, warmup=1)
+        ms_bf16 = cuda_ms(lambda: detect_frames(det_bf16, x), reps=3,
+                          warmup=1)
+    log(f"int8 serving detector, warm {len(x)}-frame chunk: {ms:.3f} ms; "
+        f"bf16 serving detector {ms_bf16:.3f} ms (CUDA events)")
+    del det8, det_bf16
+    torch.cuda.empty_cache()
+    return launches
+
+
 def check_roi_head(boxes, score, boxes_p, score_p):
     """The RoI head's boxes and scores for each proposal, (B, R, 4) and (B,
     R) with -inf where a proposal is dropped, through K3 against the plain
@@ -1282,10 +1482,11 @@ def match_boxes(iou, sa, free):
     return pairs, lone
 
 
-def check_detections(boxes, scores, boxes_p, scores_p, keep=8):
-    """Detections through K3 against the plain path: every detection of
-    each path a frame, best first, of which a max_det = ``keep`` detect
-    returns the first ``keep``. K3 and its plain version round different
+def check_detections(boxes, scores, boxes_p, scores_p, keep=8, path="K3"):
+    """Detections through K3 (or the kernel ``path`` names) against the
+    plain path: every detection of each path a frame, best first, of which
+    a max_det = ``keep`` detect returns the first ``keep``. K3 and its
+    plain version round different
     f32 sums to bf16, so outputs differ by up to one bf16 ulp, which 24
     bf16 blocks carry into the features (the trunk maps are held to 2^-5
     of their range before this). Each frame must keep as many valid
@@ -1305,7 +1506,7 @@ def check_detections(boxes, scores, boxes_p, scores_p, keep=8):
         sa, sb = scores[f][:keep], scores_p[f][:keep]
         valid, valid_p = sa > 0, sb > 0
         if valid.sum() != valid_p.sum():
-            faults.append(f"frame {f}: {valid.sum()} detections through K3, "
+            faults.append(f"frame {f}: {valid.sum()} detections through {path}, "
                           f"{valid_p.sum()} plain")
             continue
         a, b = boxes[f][:keep][valid], boxes_p[f][:keep][valid_p]
@@ -1320,15 +1521,15 @@ def check_detections(boxes, scores, boxes_p, scores_p, keep=8):
             continue
         lone_p = np.where(free)[0]
         log(f"frame {f}: {len(lone)} detection(s) swapped at the max_det cut: "
-            f"through K3 {fmt(sa[lone])}, plain {fmt(sb[lone_p])}; kept "
-            f"scores through K3 {fmt(sa)}, plain {fmt(sb)}")
+            f"through {path} {fmt(sa[lone])}, plain {fmt(sb[lone_p])}; kept "
+            f"scores through {path} {fmt(sa)}, plain {fmt(sb)}")
         if not (valid.all() and len(lone) <= 2):
             faults.append(f"frame {f}: {len(lone)} detections do not match "
                           "one to one")
             continue
         # each side's unmatched boxes among the other's detections past the cut
         for side, box, s, idx, ob, os_, cut in (
-                ("K3", a, sa, lone, boxes_p[f], scores_p[f], sb.min()),
+                (path, a, sa, lone, boxes_p[f], scores_p[f], sb.min()),
                 ("plain", b, sb, lone_p, boxes[f], scores[f], sa.min())):
             ob, os_ = ob[keep:], os_[keep:]
             iou_o = box_iou(box[idx], ob)
@@ -1351,7 +1552,8 @@ def check_detections(boxes, scores, boxes_p, scores_p, keep=8):
                         "none" if k is None else f"rank {keep + k}, IoU "
                         f"{iou_o[i, k]:.4f}, score {os_[k]:.7f}"))
         swaps += len(lone)
-    log(f"k3 plain path: detections matched, worst IoU {worst_iou:.4f}, "
+    log(f"{path.lower()} plain path: detections matched, worst IoU "
+        f"{worst_iou:.4f}, "
         f"|d score| {worst_ds:.3e}; {swaps} swapped at the max_det cut, "
         f"each within {worst_cut:.3e} of its own score and the cut on the "
         "other path")
@@ -1360,7 +1562,7 @@ def check_detections(boxes, scores, boxes_p, scores_p, keep=8):
     if faults:
         raise AssertionError(faults[0])
     if not (worst_iou >= 0.9 and worst_ds <= tol):
-        raise AssertionError("K3 path disagrees with the plain path")
+        raise AssertionError(f"{path} path disagrees with the plain path")
 
 
 def check_maps(got, want, name, frac):

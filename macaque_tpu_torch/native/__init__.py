@@ -7,4 +7,5 @@ of the pictorial-structure kernels, used by the tests and by
 built with one ``g++`` call; no CUDA.
 """
 
-from macaque_tpu_torch.native.build import library_path, load_native
+from macaque_tpu_torch.native.build import (
+    library_path, load_native, native_available)

@@ -115,3 +115,13 @@ def load_native(build_dir: str | None = None):
             return out
 
     return Native()
+
+
+def native_available() -> bool:
+    """True when ``load_native()`` builds (or finds) and loads the library,
+    False on any failure."""
+    try:
+        load_native()
+        return True
+    except Exception:  # noqa: BLE001 (any failure means "not available")
+        return False

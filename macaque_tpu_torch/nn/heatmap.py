@@ -93,3 +93,14 @@ def flip_heatmaps(heatmaps: torch.Tensor, flip_pairs=MACAQUE_FLIP_PAIRS):
     for a, b in flip_pairs:
         perm[a], perm[b] = perm[b], perm[a]
     return heatmaps.flip(-2)[..., torch.as_tensor(perm, device=heatmaps.device)]
+
+
+def pose_forward_flip(model, crops: torch.Tensor, flip_pairs=MACAQUE_FLIP_PAIRS
+                      ) -> torch.Tensor:
+    """Flip-test wrapper: the mean of the direct heatmaps and those of the
+    horizontally flipped crops (B, H, W, 3) mapped back (reference
+    step1:101). Takes the module ``model`` where the JAX package's takes
+    ``apply_fn, params``; ``TorchPerception`` runs the same sum on one
+    batch of direct and flipped crops."""
+    hm = model(crops)
+    return 0.5 * (hm + flip_heatmaps(model(crops.flip(2)), flip_pairs))

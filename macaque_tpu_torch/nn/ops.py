@@ -1,5 +1,5 @@
-"""Detection ops: anchors, box coding, IoU, static-shape NMS and the
-geometry of the windowed RoIAlign.
+"""Detection ops: anchors, box coding, IoU, static-shape NMS, the exact
+aligned RoIAlign by flat gather and the geometry of the windowed RoIAlign.
 
 PyTorch counterparts of ``macaque_tpu/nn/ops.py`` (mmdet anchor
 generation, DeltaXYWH decoding, greedy NMS, mmcv aligned RoIAlign), with
@@ -142,21 +142,29 @@ def _roi_sample_grids(feats, rois, levels, out_size, strides, sampling_ratio):
     Returns (gy (B, R, out*s), gx (B, R, out*s), Hs (B, R), Ws (B, R)),
     Hs/Ws the assigned level's valid extents."""
     L = len(feats)
-    s = sampling_ratio
-    n = out_size * s
     dev = rois.device
     Hs = torch.as_tensor([f.shape[1] for f in feats], device=dev)[levels]
     Ws = torch.as_tensor([f.shape[2] for f in feats], device=dev)[levels]
     scale = torch.as_tensor(1.0 / np.asarray(strides, np.float32)[:L],
                             dtype=rois.dtype, device=dev)[levels]
+    gy, gx = _aligned_samples(rois, scale, out_size, sampling_ratio)
+    return gy, gx, Hs, Ws
+
+
+def _aligned_samples(rois, scale, out_size, sampling_ratio):
+    """The mmcv aligned RoIAlign grid: rois (..., 4) image-coordinate xyxy,
+    scale a float or (...,) per RoI. Returns (gy, gx), each (..., out*s)
+    in feature-map units."""
+    s = sampling_ratio
     x1 = rois[..., 0] * scale - 0.5
     y1 = rois[..., 1] * scale - 0.5
     x2 = rois[..., 2] * scale - 0.5
     y2 = rois[..., 3] * scale - 0.5
-    grid = (torch.arange(n, dtype=rois.dtype, device=dev) + 0.5) / s
+    grid = (torch.arange(out_size * s, dtype=rois.dtype,
+                         device=rois.device) + 0.5) / s
     gy = y1[..., None] + grid * ((y2 - y1) / out_size)[..., None]
     gx = x1[..., None] + grid * ((x2 - x1) / out_size)[..., None]
-    return gy, gx, Hs, Ws
+    return gy, gx
 
 
 def _roi_window_geometry(feats, rois, levels, out_size, strides,
@@ -196,3 +204,86 @@ def _roi_window_geometry(feats, rois, levels, out_size, strides,
     Ky = Ky.reshape(Bq, Rq, out_size, s, window).mean(3)
     Kx = Kx.reshape(Bq, Rq, out_size, s, window).mean(3)
     return canvas, ys, xs, Ky, Kx, window
+
+
+# ------------------------------------------------------ exact RoIAlign
+
+def _bilinear_pool(table, base, Hr, Wr, gy, gx, out_size, s, weight_dtype):
+    """Aligned bilinear samples of the outer grid gy x gx, each RoI reading
+    rows ``base + y * Wr + x`` of the flat ``table`` (N, C); averaged over
+    the s x s samples of each bin.
+
+    base, Hr, Wr (..., R) int; gy, gx (..., R, out*s) in level units.
+    Samples fully outside (-1, extent) give 0; the stencil's corners clamp
+    to the level's extent (index clipping, as the JAX package's gather).
+    Returns (..., R, out, out, C)."""
+    n = gy.shape[-1]
+    yq = gy[..., :, None].expand(*gy.shape, n)
+    xq = gx[..., None, :].expand(*gx.shape[:-1], n, n)
+    y0, x0 = torch.floor(yq), torch.floor(xq)
+    wy = (yq - y0)[..., None].to(weight_dtype)
+    wx = (xq - x0)[..., None].to(weight_dtype)
+    Hm, Wm = (Hr - 1)[..., None, None], (Wr - 1)[..., None, None]
+    y0i = torch.minimum(y0.long().clamp_min(0), Hm)
+    x0i = torch.minimum(x0.long().clamp_min(0), Wm)
+    y1i = torch.minimum(y0i + 1, Hm)
+    x1i = torch.minimum(x0i + 1, Wm)
+    Hf, Wf = Hr.to(yq.dtype)[..., None, None], Wr.to(xq.dtype)[..., None, None]
+    inside = (yq > -1.0) & (yq < Hf) & (xq > -1.0) & (xq < Wf)
+    base, Wrow = base[..., None, None], Wr[..., None, None]
+    v00 = table[base + y0i * Wrow + x0i]
+    v01 = table[base + y0i * Wrow + x1i]
+    v10 = table[base + y1i * Wrow + x0i]
+    v11 = table[base + y1i * Wrow + x1i]
+    val = (v00 * (1 - wy) * (1 - wx) + v01 * (1 - wy) * wx
+           + v10 * wy * (1 - wx) + v11 * wy * wx)
+    val = torch.where(inside[..., None], val, 0.0)
+    lead = gy.shape[:-1]
+    return val.reshape(*lead, out_size, s, out_size, s,
+                       table.shape[-1]).mean((-4, -2))
+
+
+def roi_align(feat: torch.Tensor, rois: torch.Tensor, out_size: int,
+              spatial_scale: float, sampling_ratio: int = 2) -> torch.Tensor:
+    """Aligned RoIAlign (mmcv aligned=True: half-pixel offset) on one
+    feature map, by flat gather, with a fixed sampling ratio as in the JAX
+    package (the reference's adaptive ratio 0 gives shapes that depend on
+    the boxes).
+
+    feat (H, W, C); rois (R, 4) xyxy in image coordinates. Returns (R, out,
+    out, C), in the promoted dtype of feat and rois."""
+    H, W, C = feat.shape
+    gy, gx = _aligned_samples(rois, spatial_scale, out_size, sampling_ratio)
+    zero = torch.zeros(rois.shape[0], dtype=torch.long, device=rois.device)
+    return _bilinear_pool(feat.reshape(H * W, C), zero, zero + H, zero + W,
+                          gy, gx, out_size, sampling_ratio, gy.dtype)
+
+
+def roi_align_pyramid(feats, rois: torch.Tensor, levels: torch.Tensor,
+                      out_size: int, strides, sampling_ratio: int = 2
+                      ) -> torch.Tensor:
+    """Aligned RoIAlign over an FPN pyramid in one gather: the level maps
+    are flattened into one (sum(H*W), C) row table, and each RoI's bilinear
+    samples index its assigned level through a per-level row offset. The
+    exact oracle of the windowed route (``nn/roialign.py``).
+
+    feats: list of (H_l, W_l, C); rois (R, 4) image-coordinate xyxy; levels
+    (R,) int in [0, len(feats)). Returns (R, out, out, C). Batched inputs,
+    feats (B, H_l, W_l, C), rois (B, R, 4), levels (B, R), flatten the batch
+    into the same table (each image's rows after the last one's) and return
+    (B, R, out, out, C). The interpolation weights are cast to the table's
+    dtype, as the JAX package combines them."""
+    batched = feats[0].dim() == 4
+    if not batched:
+        feats, rois, levels = [f[None] for f in feats], rois[None], levels[None]
+    B, C, dev = feats[0].shape[0], feats[0].shape[-1], rois.device
+    sizes = np.array([f.shape[1] * f.shape[2] for f in feats])
+    offsets = torch.as_tensor(np.concatenate([[0], np.cumsum(sizes)[:-1]]),
+                              device=dev)
+    table = torch.cat([f.reshape(B, -1, C) for f in feats], 1).reshape(-1, C)
+    gy, gx, Hs, Ws = _roi_sample_grids(feats, rois, levels, out_size, strides,
+                                       sampling_ratio)
+    base = offsets[levels] + torch.arange(B, device=dev)[:, None] * int(sizes.sum())
+    out = _bilinear_pool(table, base, Hs, Ws, gy, gx, out_size, sampling_ratio,
+                         table.dtype)
+    return out if batched else out[0]

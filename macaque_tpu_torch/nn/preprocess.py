@@ -53,6 +53,23 @@ def _resample(img: torch.Tensor, Wy: torch.Tensor, Wx: torch.Tensor
     return torch.einsum("bnjw,bniwc->bnijc", Wx, rows)
 
 
+def resize_bilinear(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """cv2.resize(INTER_LINEAR) half-pixel convention: (H, W, C) -> float32
+    (oh, ow, C)."""
+    H, W, _ = img.shape
+    oh, ow = out_hw
+    ar = lambda n: torch.arange(n, device=img.device, dtype=torch.float32)  # noqa: E731
+    ys = (ar(oh) + 0.5) * (H / oh) - 0.5
+    xs = (ar(ow) + 0.5) * (W / ow) - 0.5
+    return _resample(img[None], _interp_matrix(ys, H), _interp_matrix(xs, W))[0]
+
+
+def detector_input(img: torch.Tensor, target: int = 800, divisor: int = 32):
+    """One image: (H, W, 3) -> (padded normalized (1, Hp, Wp, 3), scale,
+    (h_res, w_res)), ``detector_input_batch`` of ``img[None]``."""
+    return detector_input_batch(img[None], target, divisor)
+
+
 def detector_input_batch(imgs: torch.Tensor, target: int = 800,
                          divisor: int = 32):
     """(B, H, W, 3) -> (padded normalized (B, Hp, Wp, 3), scale,

@@ -1,9 +1,12 @@
 """The port is whole: every module of the JAX package has its counterpart
-in ``macaque_tpu_torch/``, every function of the JAX package that reaches
-``pl.pallas_call`` has its counterpart that reaches a hand-written kernel,
-and every CUDA source of the port is one of those kernels. A module or a
-Pallas kernel added to the JAX package without its counterpart, or a
-``csrc/*.cu`` added without its row here, fails this file.
+in ``macaque_tpu_torch/``, every public function and class of a JAX module
+has its counterpart in the port module (under its own name, or through
+``NAMES``) or a reason in ``NAMES_NOT_PORTED``, every function of the JAX
+package that reaches ``pl.pallas_call`` has its counterpart that reaches a
+hand-written kernel, and every CUDA source of the port is one of those
+kernels. A module, a public name or a Pallas kernel added to the JAX
+package without its counterpart, or a ``csrc/*.cu`` added without its row
+here, fails this file.
 
 The sources are read with ``ast`` and ``os.walk``; neither package is
 imported. That each wrapper launches through ``kernels.launch`` under its
@@ -35,6 +38,59 @@ NOT_PORTED = {
         "kernel library's _build/, built once and keyed by a hash of the "
         "CUDA sources (kernels.py), and its perf_tables keeps its own "
         "repo_root"),
+}
+
+# the public names of the JAX package whose counterpart has another name or
+# lives in another port module: (JAX module, name) -> (port module, name)
+NAMES = {
+    ("core/trace.py", "xla_profile"): ("core/trace.py", "torch_profile"),
+    ("nn/ops.py", "roi_align_windowed"): ("nn/roialign.py",
+                                          "roi_align_windowed"),
+    ("nn/pallas_attention.py", "fused_attention_packed"):
+        ("nn/attention.py", "packed_attention"),
+    ("nn/pallas_attention.py", "fused_window_attention"):
+        ("nn/attention.py", "window_attention"),
+    ("nn/pallas_attention.py", "fused_window_attention_blocked"):
+        ("nn/attention.py", "window_attention"),
+    ("nn/pallas_roialign.py", "roi_align_windowed_fused"):
+        ("nn/roialign.py", "roi_align_windowed"),
+    ("nn/pallas_roialign.py", "roi_align_windowed_switch"):
+        ("nn/roialign.py", "roi_align_windowed"),
+    ("nn/quant.py", "Int8Dense"): ("nn/quant.py", "Int8Linear"),
+    ("nn/quant.py", "int8_matmul"): ("nn/quant.py", "int8_matmul_reference"),
+    ("nn/quant.py", "quantize_swin_params"): ("nn/quant.py", "quantize_swin_"),
+    ("nn/quant.py", "quantize_vitpose_params"):
+        ("nn/quant.py", "quantize_vitpose_"),
+    ("nn/swin.py", "WindowAttention"): ("nn/swin.py", "WindowMSA"),
+    ("pipeline/perception.py", "FlaxPerception"):
+        ("pipeline/perception.py", "TorchPerception"),
+    ("pipeline/weights.py", "build_flax_perception"):
+        ("pipeline/weights.py", "build_torch_perception"),
+    ("tracking/hungarian.py", "hungarian_jax"):
+        ("tracking/hungarian.py", "hungarian_torch"),
+    ("tracking/kalman.py", "kalman_predict_jax"):
+        ("tracking/kalman.py", "kalman_predict"),
+    ("tracking/kalman.py", "kalman_update_jax"):
+        ("tracking/kalman.py", "kalman_update"),
+}
+_CONVERT = ("turns an mm-keyed PyTorch state dict into a Flax tree; the port's "
+            "modules keep the mm key names and load such a state dict as it "
+            "is (pipeline/weights.py::load_checkpoint)")
+# the public names of the JAX package with no counterpart, and why
+NAMES_NOT_PORTED = {
+    ("nn/pallas_swin_block.py", "pad_window_bias"): (
+        "pads the Pallas kernel's bias to its TPU tile; the port's fused block "
+        "takes the unpadded bias (nn/swin_block.py::block_inputs)"),
+    ("nn/pallas_swin_block.py", "pad_window_mask"): (
+        "pads the Pallas kernel's shift mask to its TPU tile; the port's fused "
+        "block takes the unpadded mask (nn/swin_block.py::block_inputs)"),
+    ("nn/convert.py", "convert_vitpose"): _CONVERT,
+    ("nn/convert.py", "convert_resnet"): _CONVERT,
+    ("nn/convert.py", "convert_swin_backbone"): _CONVERT,
+    ("nn/convert.py", "convert_swin_maskrcnn"): _CONVERT,
+    ("nn/convert.py", "load_torch_checkpoint"): (
+        "reads a .pth for the Flax converters; the port reads it with "
+        "torch.load in pipeline/weights.py::load_checkpoint"),
 }
 
 # each hand-written kernel: its CUDA source, the port module that holds its
@@ -105,6 +161,32 @@ def functions(path):
     return {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
 
 
+def public(path):
+    """The public top-level functions and classes of ``path``."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    return {n.name for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
+                              ast.ClassDef)) and not n.name.startswith("_")}
+
+
+def bound(path):
+    """Every name bound at the top level of ``path``: a function or class
+    defined there, an assignment, or an import."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    out = set()
+    for n in tree.body:
+        if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            out.add(n.name)
+        elif isinstance(n, (ast.Assign, ast.AnnAssign)):
+            targets = n.targets if isinstance(n, ast.Assign) else [n.target]
+            out |= {t.id for t in targets if isinstance(t, ast.Name)}
+        elif isinstance(n, (ast.Import, ast.ImportFrom)):
+            out |= {a.asname or a.name.split(".")[0] for a in n.names}
+    return out
+
+
 def names(fn):
     """Every name that ``fn`` reads (a call, or a function handed on, as to
     ``functools.partial``)."""
@@ -173,6 +255,28 @@ def test_every_pallas_function_is_in_the_map():
     got = pallas_functions()
     assert got - set(PALLAS) == set(), "Pallas functions with no port row"
     assert set(PALLAS) - got == set(), "rows of no Pallas function"
+
+
+@pytest.mark.parametrize("rel", sorted(modules(JAX) - set(NOT_PORTED)))
+def test_every_public_name_has_its_counterpart(rel):
+    here = bound(os.path.join(PORT, counterpart(rel)))
+    missing = sorted(
+        name for name in public(os.path.join(JAX, rel))
+        if name not in here and (rel, name) not in NAMES
+        and (rel, name) not in NAMES_NOT_PORTED)
+    assert not missing, f"{rel}: public names with no counterpart in " \
+        f"{counterpart(rel)} and no row in NAMES or NAMES_NOT_PORTED: {missing}"
+
+
+def test_the_name_maps_name_what_exists():
+    assert not set(NAMES) & set(NAMES_NOT_PORTED)
+    for (rel, name), (port, port_name) in NAMES.items():
+        assert name in public(os.path.join(JAX, rel)), (rel, name)
+        assert port_name in bound(os.path.join(PORT, port)), (port, port_name)
+    for (rel, name), why in NAMES_NOT_PORTED.items():
+        assert name in public(os.path.join(JAX, rel)) and why, (rel, name)
+        assert name not in bound(os.path.join(PORT, counterpart(rel))), \
+            f"{rel}::{name} is ported; take it out of NAMES_NOT_PORTED"
 
 
 @pytest.mark.parametrize("key", sorted(PALLAS), ids="::".join)

@@ -1609,3 +1609,70 @@ def test_pipeline_bench_serving_tier_on_the_card(card, tmp_path, monkeypatch):
     assert torch.cuda.get_device_name(card).split()[0] in out["device"]
     for k in ("packed_attention", "roi_align_windowed", "quant_int8_matmul"):
         assert kernels.LAUNCHES[k] > before[k], k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_exact_roi_align_on_the_card_equals_the_cpu(card, dtype):
+    """The flat-gather RoIAlign (``nn/ops.py``, plain PyTorch) on CUDA
+    tensors stays on the card and gives the CPU's values: the batched
+    pyramid with mixed levels and border RoIs, and the one-map form. The
+    bilinear terms are the same ops, but CUDA divides by a scalar as a
+    product with its reciprocal, so a sample coordinate may move by one
+    float32 ulp (tests' coordinates below 64: 4e-6 of a pixel), and the
+    bin mean may sum in another order: within 1e-5 of the largest output
+    in float32 (8.1e-6 absolute of 2.4 measured for the one-map form on an
+    H100), one bf16 ulp (2^-7) in bf16."""
+    from macaque_tpu_torch.nn.ops import roi_align, roi_align_pyramid
+
+    rng = np.random.default_rng(31)
+    B, R, C = 2, 64, 32
+    feats = [torch.from_numpy(rng.normal(size=(B, 64 >> l, 48 >> l, C))).to(
+        dtype) for l in range(4)]
+    rois, lvl = edge_rois(31, B, R, 192)
+    rois, lvl = torch.from_numpy(rois).float(), torch.from_numpy(lvl).long()
+    want = roi_align_pyramid(feats, rois, lvl, 7, STRIDES)
+    got = roi_align_pyramid([f.to(card) for f in feats], rois.to(card),
+                            lvl.to(card), 7, STRIDES)
+    assert got.device.type == "cuda" and got.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=tol * want.abs().max().item())
+    one = roi_align(feats[0][0].float().to(card), rois[0].to(card), 7, 0.25)
+    torch.testing.assert_close(one.cpu(), roi_align(feats[0][0].float(),
+                                                    rois[0], 7, 0.25),
+                               rtol=0, atol=1e-5 * one.abs().max().item())
+
+
+def test_int8_swin_stage_through_k5b_equals_its_plain_route(card):
+    """Swin-S's first stage (C = 96, 3 heads, 2 blocks) in bf16, quantized
+    with ``quantize_swin_`` from its float32 state dict: its four int8
+    layers a block launch K5b (8 launches), and the stage's map equals the
+    same model with ``Int8Linear`` routed to the plain chain, bit for bit
+    (K5b is exact)."""
+    from unittest import mock
+
+    from macaque_tpu_torch.nn import quant
+    from macaque_tpu_torch.nn.quant import quantize_swin_
+    from macaque_tpu_torch.nn.swin import SwinBackbone, SwinConfig
+
+    cfg = dict(depths=(2,), num_heads=(3,))
+    torch.manual_seed(7)
+    sd = SwinBackbone(SwinConfig(**cfg), device=card).state_dict()
+    bb = SwinBackbone(SwinConfig(**cfg, compute_dtype=torch.bfloat16),
+                      device=card)
+    bb.load_state_dict(sd)
+    quantize_swin_(bb, sd)
+    assert bb.cfg.quantize == "int8"
+    x = torch.from_numpy(np.random.default_rng(32).normal(
+        size=(2, 224, 160, 3))).to(card, torch.float32)
+    with torch.no_grad():
+        n = kernels.LAUNCHES["quant_int8_matmul"]
+        got = bb(x)
+        assert kernels.LAUNCHES["quant_int8_matmul"] == n + 8
+        with mock.patch.object(quant, "quant_int8_matmul",
+                               quant_int8_matmul_reference):
+            want = bb(x)
+        assert kernels.LAUNCHES["quant_int8_matmul"] == n + 8
+    assert len(got) == 1 and got[0].shape == (2, 56, 40, 96)
+    assert torch.isfinite(got[0].float()).all()
+    assert torch.equal(got[0], want[0])
