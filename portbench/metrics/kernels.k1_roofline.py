@@ -1,0 +1,20 @@
+"""Percent of K1's roofline: the least time of every K1 launch in the
+traced segment (``rooflines/k1.py``, bytes-bound) over K1's device time
+there; nothing where K1 did not run."""
+
+from portbench.files import load_module
+
+
+def read(run, trace):
+    return _share(run, trace, load_module("rooflines/k1.py"))
+
+
+def _share(run, trace, k):
+    if trace is None:
+        return None
+    t = sum(v for n, v in trace["by_name"].items()
+            if any(name in n for name in k.KERNELS))
+    pose, _, _ = run.crops(lambda s: s == -2)
+    if t <= 0 or not pose:
+        return None
+    return 100.0 * k.bound_s(run.cfg["networks"]["pose"], pose) / t
