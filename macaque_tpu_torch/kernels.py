@@ -16,7 +16,8 @@ Every C entry point launches on the current CUDA device and returns
 that device's current stream, and turns a non-zero code into an
 exception. ``LAUNCHES`` holds one plain integer per kernel, which
 :func:`launch` raises by one each time a wrapper launches the kernel, and
-nowhere else.
+nowhere else; the same count reaches the current record of
+``core/trace.py`` as ``launches.<kernel>``.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ import re
 import shutil
 import subprocess
 import threading
+
+from macaque_tpu_torch.core.trace import count
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.environ.get(
@@ -211,4 +214,4 @@ def launch(kernel: str, entry: str, device, *args, name: str | None = None
         err = getattr(library(), f"macaque_{entry}")(
             *args, current_stream(device))
     check(err, name or kernel)
-    LAUNCHES[kernel] += 1
+    count(f"launches.{kernel}", total=(LAUNCHES, kernel))

@@ -9,6 +9,12 @@ nms_pre/max 1000 at IoU 0.7 (level-aware NMS), RCNN score_thr 0.05, NMS
 0.5, max 100, with fixed output sizes. Module names follow mmdet
 (``neck.fpn_convs.0.conv``, ``roi_head.bbox_head.shared_fcs.0``).
 The RoIAlign runs ``nn/roialign.py`` (the CUDA kernel on the card).
+
+Spans (``core/trace.py``): ``detector.trunk`` around :func:`detect_frames`'
+trunk loop, ``detector.head`` around :meth:`SwinMaskRCNN.head`, which holds
+``detector.proposals``, ``detector.roi`` and ``detector.box_head``; the
+anchors' copies to the card count as ``host_reads.anchors``, the RoI chunks'
+window read as ``host_reads.roi_buckets``.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from macaque_tpu_torch.core.trace import count, span
 from macaque_tpu_torch.nn.layers import Conv2d, Linear, nhwc_conv
 from macaque_tpu_torch.nn.ops import (
     _roi_level_canvas, batched_nms_fixed, delta2bbox, make_anchors, nms_fixed)
@@ -164,6 +171,7 @@ class SwinMaskRCNN(nn.Module):
             delta = reg.reshape(B, -1, 4)
             k = min(c.rpn_nms_pre, score.shape[1])
             top_s, top_i = torch.topk(score, k, dim=1)
+            count("host_reads.anchors")   # copies that wait on a card
             anc = torch.as_tensor(anc, device=dev)[top_i]
             d = torch.gather(delta, 1, top_i[..., None].expand(-1, -1, 4))
             boxes.append(delta2bbox(anc, d, max_shape=img_shape))
@@ -192,6 +200,7 @@ class SwinMaskRCNN(nn.Module):
         prop_valid = torch.gather(prop_valid, 1, order)
         need = torch.gather(need, 1, order)
         starts = range(0, R, Rc)
+        count("host_reads.roi_buckets")
         windows = [WINDOW_BUCKETS[w] for w in
                    torch.stack([need[:, r0:r0 + Rc].amax() for r0 in starts]).tolist()]
         feats = [roi_align_windowed(feats4, proposals[:, r0:r0 + Rc],
@@ -208,18 +217,31 @@ class SwinMaskRCNN(nn.Module):
         if img_shape is None:
             img_shape = (fpn_feats[0].shape[1] * c.strides[0],
                          fpn_feats[0].shape[2] * c.strides[0])
-        proposals, prop_valid = self._proposals(fpn_feats, rpn_outs, img_shape)
-        K = min(c.rcnn_roi_topk, proposals.shape[1])
-        proposals, prop_valid = proposals[:, :K], prop_valid[:, :K]
+        with span("detector.head"):
+            with span("detector.proposals"):
+                proposals, prop_valid = self._proposals(fpn_feats, rpn_outs,
+                                                        img_shape)
+            K = min(c.rcnn_roi_topk, proposals.shape[1])
+            proposals, prop_valid = proposals[:, :K], prop_valid[:, :K]
 
-        w = (proposals[..., 2] - proposals[..., 0]).clamp_min(0)
-        h = (proposals[..., 3] - proposals[..., 1]).clamp_min(0)
-        lvl = torch.floor(torch.log2(torch.sqrt(w * h) / c.finest_scale + 1e-6))
-        lvl = lvl.clamp(0, 3).long()
-        feats4 = [f.to(c.compute_dtype) for f in fpn_feats[:4]]
-        proposals, prop_valid, roi_feats = self._roi_features(
-            feats4, proposals, lvl, prop_valid)
-        R = proposals.shape[1]
+            with span("detector.roi"):
+                w = (proposals[..., 2] - proposals[..., 0]).clamp_min(0)
+                h = (proposals[..., 3] - proposals[..., 1]).clamp_min(0)
+                lvl = torch.floor(torch.log2(torch.sqrt(w * h) / c.finest_scale
+                                             + 1e-6))
+                lvl = lvl.clamp(0, 3).long()
+                feats4 = [f.to(c.compute_dtype) for f in fpn_feats[:4]]
+                proposals, prop_valid, roi_feats = self._roi_features(
+                    feats4, proposals, lvl, prop_valid)
+            with span("detector.box_head"):
+                return self._box_head(proposals, prop_valid, roi_feats,
+                                      img_shape)
+
+    def _box_head(self, proposals, prop_valid, roi_feats, img_shape):
+        """The box head and its NMS on the RoI features -> ``head``'s
+        outputs."""
+        c = self.cfg
+        B, R = proposals.shape[:2]
         cls_logits, reg = self.roi_head.bbox_head(
             roi_feats.reshape(B * R, *roi_feats.shape[2:]))
         fg = torch.softmax(cls_logits, -1).reshape(B, R, -1)[..., 0]
@@ -244,8 +266,10 @@ def detect_frames(model: SwinMaskRCNN, images, img_shape=None):
     """Chunk inference: the trunk one image at a time (as the JAX package
     maps it), the proposal/RoI/box head batched over the chunk.
     images (B, H, W, 3) normalized, padded to /32."""
-    outs = [model.trunk(images[i:i + 1]) for i in range(images.shape[0])]
-    fpn_feats = [torch.cat([o[0][l] for o in outs]) for l in range(len(outs[0][0]))]
-    rpn_outs = [tuple(torch.cat([o[1][l][j] for o in outs]) for j in range(2))
-                for l in range(len(outs[0][1]))]
+    with span("detector.trunk"):
+        outs = [model.trunk(images[i:i + 1]) for i in range(images.shape[0])]
+        fpn_feats = [torch.cat([o[0][l] for o in outs])
+                     for l in range(len(outs[0][0]))]
+        rpn_outs = [tuple(torch.cat([o[1][l][j] for o in outs]) for j in range(2))
+                    for l in range(len(outs[0][1]))]
     return model.head(fpn_feats, rpn_outs, img_shape)

@@ -12,6 +12,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from macaque_tpu_torch.core.trace import count
+
 # COCO/macaque 17-kp left-right swap pairs
 MACAQUE_FLIP_PAIRS = [(1, 2), (3, 4), (5, 6), (7, 8), (9, 10),
                       (11, 12), (13, 14), (15, 16)]
@@ -29,6 +31,7 @@ def gaussian_blur_heatmaps(heatmaps: torch.Tensor, kernel: int = 11
                            ) -> torch.Tensor:
     """Zero-padded separable Gaussian blur with per-map max re-scaling
     (mmpose ``gaussian_blur``). heatmaps: (..., H, W)."""
+    count("host_reads.blur")            # copies that wait on a card
     k = torch.as_tensor(_gaussian_kernel1d(kernel), dtype=heatmaps.dtype,
                         device=heatmaps.device)
     border = (kernel - 1) // 2
@@ -89,6 +92,7 @@ def udp_decode(heatmaps: torch.Tensor, input_size=(192, 256),
 def flip_heatmaps(heatmaps: torch.Tensor, flip_pairs=MACAQUE_FLIP_PAIRS):
     """Undo a horizontal image flip on heatmaps (B, H, W, K): mirror W and
     swap left/right channels (flip_mode='heatmap', shift_heatmap=False)."""
+    count("host_reads.flip")            # copies that wait on a card
     perm = np.arange(heatmaps.shape[-1])
     for a, b in flip_pairs:
         perm[a], perm[b] = perm[b], perm[a]

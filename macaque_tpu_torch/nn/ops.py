@@ -13,6 +13,8 @@ import math
 import numpy as np
 import torch
 
+from macaque_tpu_torch.core.trace import count
+
 
 # ----------------------------------------------------------------- anchors
 
@@ -47,6 +49,7 @@ def make_anchors(feat_sizes, strides, scales=(8.0,), ratios=(0.5, 1.0, 2.0)
 def delta2bbox(anchors, deltas, stds=(1.0, 1.0, 1.0, 1.0), max_shape=None,
                wh_ratio_clip=16 / 1000):
     """mmdet DeltaXYWHBBoxCoder.decode (means 0)."""
+    count("host_reads.box_coder")       # copies that wait on a card
     d = deltas * torch.as_tensor(stds, dtype=deltas.dtype, device=deltas.device)
     aw = anchors[..., 2] - anchors[..., 0]
     ah = anchors[..., 3] - anchors[..., 1]
@@ -91,7 +94,8 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, iou_thr: float,
 
     The greedy recurrence ``alive[i] = !any(j < i: alive[j] & iou > thr)``
     is solved by fixed-point sweeps from all-alive (each sweep one masked
-    (N, N) product), as in the JAX package. boxes (..., N, 4), scores
+    (N, N) product), as in the JAX package; each sweep reads the device
+    once (``host_reads.nms``, ``core/trace.py``). boxes (..., N, 4), scores
     (..., N) with invalid entries at -inf. Returns (keep_idx (..., max_out),
     keep_valid (..., max_out) bool) in descending score order.
     """
@@ -107,6 +111,7 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, iou_thr: float,
     for _ in range(N):
         hit = (sup @ alive.to(sup.dtype)[..., None])[..., 0] > 0
         new = valid & ~hit
+        count("host_reads.nms")
         if torch.equal(new, alive):
             break
         alive = new
@@ -143,6 +148,7 @@ def _roi_sample_grids(feats, rois, levels, out_size, strides, sampling_ratio):
     Hs/Ws the assigned level's valid extents."""
     L = len(feats)
     dev = rois.device
+    count("host_reads.roi_grid", 3)     # copies that wait on a card
     Hs = torch.as_tensor([f.shape[1] for f in feats], device=dev)[levels]
     Ws = torch.as_tensor([f.shape[2] for f in feats], device=dev)[levels]
     scale = torch.as_tensor(1.0 / np.asarray(strides, np.float32)[:L],

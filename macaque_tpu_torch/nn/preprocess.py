@@ -17,12 +17,15 @@ from typing import Tuple
 
 import torch
 
+from macaque_tpu_torch.core.trace import count
+
 MEAN_RGB = (123.675, 116.28, 103.53)
 STD_RGB = (58.395, 57.12, 57.375)
 
 
 def normalize_rgb(img: torch.Tensor) -> torch.Tensor:
     """uint8/float RGB (..., 3) -> normalized float32."""
+    count("host_reads.normalize", 2)    # copies that wait on a card
     mean = torch.as_tensor(MEAN_RGB, dtype=torch.float32, device=img.device)
     std = torch.as_tensor(STD_RGB, dtype=torch.float32, device=img.device)
     return (img.to(torch.float32) - mean) / std
@@ -125,6 +128,7 @@ def crop_coords_to_image(kps: torch.Tensor, centers: torch.Tensor,
                          out_hw: Tuple[int, int] = (256, 192)) -> torch.Tensor:
     """Keypoints decoded in crop space (N, K, 2) -> image pixels."""
     oh, ow = out_hw
+    count("host_reads.crop_coords")     # copies that wait on a card
     s = scales[:, None, :] / torch.as_tensor([ow - 1, oh - 1],
                                              dtype=scales.dtype,
                                              device=scales.device)

@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from macaque_tpu_torch import kernels
+from macaque_tpu_torch.core.trace import count
 from macaque_tpu_torch.nn.layers import acc_dtype
 from macaque_tpu_torch.nn.ops import _roi_sample_grids, _roi_window_geometry
 
@@ -118,11 +119,13 @@ def roi_align_windows(canvas, plane, ys, xs, ky, kx) -> torch.Tensor:
         raise ValueError("roi_align_windows: inputs must be contiguous")
     # the kernel multiplies by Ky on bf16 tensor cores, which is exact only
     # for bf16 values: one device-to-host read a call, which a CUDA graph's
-    # capture cannot make (its warm-up call, made eagerly, is checked)
-    if (not torch.cuda.is_current_stream_capturing()
-            and not torch.equal(ky, ky.to(torch.bfloat16).to(torch.float32))):
-        raise ValueError("roi_align_windows: ky must hold bfloat16 values "
-                         "(as window_inputs rounds them)")
+    # capture cannot make (its warm-up call, made eagerly, is checked);
+    # counted as host_reads.k2_check (core/trace.py)
+    if not torch.cuda.is_current_stream_capturing():
+        count("host_reads.k2_check")
+        if not torch.equal(ky, ky.to(torch.bfloat16).to(torch.float32)):
+            raise ValueError("roi_align_windows: ky must hold bfloat16 values "
+                             "(as window_inputs rounds them)")
     out = torch.empty((R, out_size, out_size, C), dtype=canvas.dtype,
                       device=canvas.device)
     kernels.launch(

@@ -4,6 +4,17 @@
 behind the three-method seam ``pipeline/step1.py`` drives (the
 ``PerceptionBackend`` protocol of the JAX package): frames and box tables
 go to the device once per chunk and the results come back as numpy.
+
+Each call's uploads run in the span ``perception.upload`` (their bytes
+counted as ``perception.upload_bytes``), its read-back in
+``perception.gather``, and the detector's input preparation in
+``detector.input`` (``core/trace.py``). ``host_reads.<site>`` counts each
+point where the host waits on the card: the device-to-host reads
+(``gather``, one a returned tensor; ``nms``, ``roi_buckets``, ``k2_check``
+in the detector) and the copies from pageable host memory, which wait on
+the card's stream (``upload``; the constants of ``anchors``,
+``box_coder``, ``roi_grid``, ``normalize``, ``flip``, ``blur``,
+``crop_coords``).
 """
 
 from __future__ import annotations
@@ -15,6 +26,7 @@ import torch
 
 from macaque_tpu_torch.core.mesh import (
     gather_shards, map_shards, put_batch_sharded, put_replicated, stage_mesh)
+from macaque_tpu_torch.core.trace import count, span
 from macaque_tpu_torch.nn.detector import detect_frames
 from macaque_tpu_torch.nn.heatmap import flip_heatmaps, udp_decode
 from macaque_tpu_torch.nn.preprocess import (
@@ -70,13 +82,21 @@ class TorchPerception:
     def _run(self, fn, *arrays):
         """``fn(models, *tensors)`` sharded over the mesh and gathered;
         returns its outputs as numpy."""
-        put = [put_batch_sharded(a, self.mesh) for a in arrays]
-        out = gather_shards(map_shards(fn, self.mesh, self._replicas,
-                                       *(s for s, _ in put)),
-                            put[0][1], device="cpu")
-        if isinstance(out, tuple):
-            return tuple(o.numpy() for o in out)
-        return out.numpy()
+        with span("perception.upload"):
+            put = [put_batch_sharded(a, self.mesh) for a in arrays]
+            placed = [t for shards, _ in put
+                      for t in {id(t): t for t in shards}.values()]
+            count("perception.upload_bytes", sum(t.nbytes for t in placed))
+            # from pageable memory each copy waits on the card's stream
+            count("host_reads.upload", len(placed))
+        outs = map_shards(fn, self.mesh, self._replicas, *(s for s, _ in put))
+        with span("perception.gather"):
+            out = gather_shards(outs, put[0][1], device="cpu")
+            if isinstance(out, tuple):
+                count("host_reads.gather", len(out) * len(outs))
+                return tuple(o.numpy() for o in out)
+            count("host_reads.gather", len(outs))
+            return out.numpy()
 
     @staticmethod
     def _frames(frames_bgr):
@@ -95,8 +115,9 @@ class TorchPerception:
         return self._run(self._detect, self._frames(frames_bgr))
 
     def _detect(self, models, frames):
-        padded, scale, _ = detector_input_batch(self._rgb(frames),
-                                                target=self.det_target)
+        with span("detector.input"):
+            padded, scale, _ = detector_input_batch(self._rgb(frames),
+                                                    target=self.det_target)
         boxes, scores, valid = detect_frames(models[0], padded)
         boxes = boxes / scale
         k = min(self.max_det, boxes.shape[1])

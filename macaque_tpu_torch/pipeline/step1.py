@@ -17,11 +17,16 @@ import numpy as np
 import torch
 
 from macaque_tpu_torch.core.config import Step1Config
+from macaque_tpu_torch.core.trace import record, span
 from macaque_tpu_torch.pipeline.artifacts import write_alldata, stage_done
 from macaque_tpu_torch.pipeline.perception import PerceptionBackend
 from macaque_tpu_torch.tracking import BotSortTracker, TrackerParams
 from macaque_tpu_torch.video.imgstore import ImgStoreReader
 from macaque_tpu_torch.video.timegrid import make_time_grid, align_time_grid
+
+# the camera loop's stages: the keys of process_camera's record that hold
+# its own seconds
+STAGES = ("decode", "detect", "track", "pose+id", "assemble")
 
 
 def expand_boxes(boxes: np.ndarray, cfg: Step1Config) -> np.ndarray:
@@ -78,8 +83,12 @@ def process_camera(
     prefetch: bool | None = None,
 ) -> dict | None:
     """Stage 1 for one camera; writes ``alldata.json`` and
-    ``frame_num.npy`` into ``out_dir`` and returns the wall-clock seconds
-    spent in each sub-stage (None when the outputs already exist).
+    ``frame_num.npy`` into ``out_dir`` and returns the call's record
+    (``core/trace.py``; None when the outputs already exist): the
+    wall-clock seconds of each sub-stage under the keys of ``STAGES``,
+    beside the seconds of every span and the counters of the calls they
+    make (``perception.upload``, ``detector.trunk``, ``host_reads.nms``,
+    ``launches.<kernel>``, ...; ``<parent>/<span>`` for a nested span).
     ``use_device_tracker`` tracks each chunk with the on-device track table
     on the perception's ``device`` (the card unless it says otherwise), in
     float64: the host tracker's precision, and the JAX package's with
@@ -140,32 +149,10 @@ def process_camera(
 
     fut = pool.submit(_decode, chunks[0]) if (pool and chunks) else None
 
-    # sub-stage wall-clock attribution (printed in the camera summary;
-    # with prefetch on, 'decode' is only the non-overlapped wait)
-    import time as _time
-
-    tt = {"decode": 0.0, "detect": 0.0, "track": 0.0, "pose+id": 0.0,
-          "assemble": 0.0}
-
-    def _tick():
-        return _time.perf_counter()
-
-    for ci, rows_c in enumerate(chunks):
-        t0 = _tick()
-        if pool:
-            frames = fut.result()
-            fut = (pool.submit(_decode, chunks[ci + 1])
-                   if ci + 1 < len(chunks) else None)
-        else:
-            frames = _decode(rows_c)
-        tt["decode"] += _tick() - t0
-
-        t0 = _tick()
-        boxes_all, scores_all = perception.detect(frames)  # (B, D, 4/…)
-        tt["detect"] += _tick() - t0
-
-        # threshold + track per frame, build fixed box tables
-        t0 = _tick()
+    def track_chunk(rows_c, boxes_all, scores_all):
+        """Threshold and track each frame of the chunk: its fixed box
+        tables (pose boxes, ID boxes, validity, track ids)."""
+        nonlocal dev_table, missed_detections, missed_tracks
         pose_boxes = np.zeros((len(rows_c), D, 4), np.float32)
         id_boxes = np.zeros((len(rows_c), D, 4), np.float32)
         valid = np.zeros((len(rows_c), D), bool)
@@ -231,25 +218,11 @@ def process_camera(
                     if xi2 > xi1 and yi2 > yi1:
                         ok.append(((xi1, yi1, xi2, yi2), tid))
                 place(bi, ok)
+        return pose_boxes, id_boxes, valid, tids_tbl
 
-        tt["track"] += _tick() - t0
-
-        t0 = _tick()
-        if valid.any():
-            kps = perception.pose(frames, pose_boxes, valid)  # (B, D, J, 3)
-            labels, lscores = perception.classify(frames, id_boxes, valid)
-        else:
-            # nothing tracked in the whole chunk (empty cage, night
-            # footage): the pose/ID programs' outputs would be fully
-            # masked, so skip the device calls — the assembly loop below
-            # reads only valid slots. Exactly equivalent by construction.
-            kps = np.full((len(rows_c), D, 17, 3), np.nan, np.float32)
-            labels = np.full((len(rows_c), D), -1, int)
-            lscores = np.zeros((len(rows_c), D), np.float32)
-        tt["pose+id"] += _tick() - t0
-
-        # host: per-joint threshold + EMA + row assembly
-        t0 = _tick()
+    def assemble_chunk(rows_c, valid, tids_tbl, id_boxes, kps, labels,
+                       lscores):
+        """Per-joint threshold, EMA and the chunk's rows."""
         for bi, r in enumerate(rows_c):
             frame_json = []
             for k in range(D):
@@ -271,7 +244,49 @@ def process_camera(
                     assigned, lsc,
                 ])
             per_row_result[int(r)] = frame_json
-        tt["assemble"] += _tick() - t0
+
+    # sub-stage wall-clock attribution: the record's five stage spans
+    # (printed in the camera summary; with prefetch on, 'decode' is only
+    # the non-overlapped wait) beside the spans and counters of what they
+    # call (core/trace.py)
+    with record(*STAGES) as tt:
+        for ci, rows_c in enumerate(chunks):
+            with span("decode"):
+                if pool:
+                    frames = fut.result()
+                    fut = (pool.submit(_decode, chunks[ci + 1])
+                           if ci + 1 < len(chunks) else None)
+                else:
+                    frames = _decode(rows_c)
+
+            with span("detect"):
+                boxes_all, scores_all = perception.detect(frames)
+
+            # threshold + track per frame, build fixed box tables
+            with span("track"):
+                pose_boxes, id_boxes, valid, tids_tbl = track_chunk(
+                    rows_c, boxes_all, scores_all)
+
+            with span("pose+id"):
+                if valid.any():
+                    # (B, D, J, 3)
+                    kps = perception.pose(frames, pose_boxes, valid)
+                    labels, lscores = perception.classify(frames, id_boxes,
+                                                          valid)
+                else:
+                    # nothing tracked in the whole chunk (empty cage, night
+                    # footage): the pose/ID programs' outputs would be
+                    # fully masked, so skip the device calls — the assembly
+                    # loop below reads only valid slots. Exactly equivalent
+                    # by construction.
+                    kps = np.full((len(rows_c), D, 17, 3), np.nan, np.float32)
+                    labels = np.full((len(rows_c), D), -1, int)
+                    lscores = np.zeros((len(rows_c), D), np.float32)
+
+            # host: per-joint threshold + EMA + row assembly
+            with span("assemble"):
+                assemble_chunk(rows_c, valid, tids_tbl, id_boxes, kps, labels,
+                               lscores)
 
     if pool:
         pool.shutdown(wait=False)
@@ -287,7 +302,7 @@ def process_camera(
             clean_res.append(res)
             clean_fnums.append(fn)
     write_alldata(out_dir, clean_res, np.asarray(clean_fnums))
-    timing = " ".join(f"{k}={v:.2f}s" for k, v in tt.items())
+    timing = " ".join(f"{k}={tt[k]:.2f}s" for k in STAGES)
     print(
         f"[step1] wrote {len(clean_res)} frames -> {out_dir} "
         f"({missed_detections} frames without detections, "

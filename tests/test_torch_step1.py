@@ -183,8 +183,11 @@ def test_fast_tier_alldata_rows_equal(fast_runs):
 
 
 def test_stage_times_reported(runs):
+    """The record holds the camera loop's five stage seconds, beside the
+    spans and counters of the calls inside them."""
     stages = runs[1]
-    assert set(stages) == {"decode", "detect", "track", "pose+id", "assemble"}
+    assert {"decode", "detect", "track", "pose+id", "assemble"} <= set(stages)
+    assert {"detector.trunk", "perception.upload_bytes"} <= set(stages)
     assert all(v >= 0 for v in stages.values())
 
 
