@@ -707,8 +707,8 @@ def check_int8_matmul(gen):
     return entry
 
 
-# Swin-S on the parity input (608x800 padded frames, the trunk one frame at
-# a time): per stage the token grid padded to multiples of 7, heads, blocks
+# Swin-S on the parity input (608x800 padded frames): per stage one frame's
+# token grid padded to multiples of 7, heads, blocks
 SWIN_STAGES = [((154, 203), 3, 2), ((77, 105), 6, 2), ((42, 56), 12, 18),
                ((21, 28), 24, 2)]
 CHUNK = 16                       # frames a detector call takes
@@ -735,12 +735,13 @@ def window_sdpa(qkv, bias, mask, heads):
 
 
 def check_window_attention(gen):
-    """K3 at the four Swin-S stages of one parity detector frame (the trunk
-    runs frame by frame), with and without the shift mask, in both
-    precisions (f32 products and input-dtype products); then the sequence of
-    a 16-frame detector call, built call by call and timed as one: 24 calls a
-    frame (blocked variant, shift masks on the odd blocks), 384 in all, each
-    on its own qkv, one bias per block. The entry is that sequence."""
+    """K3 at the four Swin-S stages of one parity detector frame, with and
+    without the shift mask, in both precisions (f32 products and input-dtype
+    products); then a 16-frame chunk's sequence as ``detect_frames`` runs
+    it, built call by call and timed as one: 24 calls, one a block (blocked
+    variant), each on its own (16 nW, 49, 3C) qkv of the whole chunk's
+    windows, one bias per block, the stage's (nW, 49, 49) shift mask on the
+    odd blocks, read at w % nW. The entry is that sequence."""
     from macaque_tpu_torch.nn.attention import (
         window_attention, window_attention_reference)
     from macaque_tpu_torch.nn.swin import _shift_mask
@@ -783,9 +784,9 @@ def check_window_attention(gen):
                            f", {dev / 20:.4f} ms device (20 calls replayed)"
                            if why is None else f", capture refused ({why})"))
 
-    calls = [(randn_bf16(gen, nW, 49, 96 * heads), bias, m, heads)
-             for _ in range(CHUNK) for bias, m, heads, nW in blocks]
-    for i, c in enumerate(calls[:len(blocks)]):       # the first frame's 24
+    calls = [(randn_bf16(gen, CHUNK * nW, 49, 96 * heads), bias, m, heads)
+             for bias, m, heads, nW in blocks]
+    for i, c in enumerate(calls):
         err = max(err, max_err(window_attention(*c),
                                window_attention_reference(*c),
                                f"window_attention sequence call {i}"))
@@ -802,7 +803,8 @@ def check_window_attention(gen):
     n_flop = sum(4.0 * q.shape[0] * h * 49 * 49 * 32 for q, _, _, h in calls)
     b, by = bound_ms(n_bytes, n_flop, BF16_FLOP_PER_S)
     log(f"window_attention {CHUNK}-frame detector sequence ({len(calls)} "
-        f"calls): kernel {ms:.4f} ms eager, "
+        f"calls, one a block on the chunk's windows): kernel {ms:.4f} ms "
+        f"eager, "
         + (f"{dev:.4f} ms device (CUDA graph replay)" if why is None else
            f"CUDA graph capture refused ({why})")
         + f", plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b:.4f} ms "
@@ -1245,9 +1247,10 @@ def check_int8_plain_path(pose, frames, perception):
 
 def phase_window_detector(det, pose, idm, frames):
     """The parity detector with SwinConfig(use_pallas_attention=True) on one
-    16-frame chunk: the 24 window-attention calls of each frame's trunk
-    launch K3. Then the same model with K3 swapped for its plain version,
-    and K3 again on the plain run's RPN proposals: the RPN's top-k and NMS
+    16-frame chunk: the trunk's 24 window-attention calls, one a block over
+    the whole chunk's windows, launch K3. Then the same model with K3
+    swapped for its plain version, and K3 again on the plain run's RPN
+    proposals: the RPN's top-k and NMS
     pick among proposals that the random weights score within about 1e-4
     of each other, so bf16 noise would change which proposals the RoI head
     sees. On shared proposals every RoI-head output (the boxes and scores
@@ -1298,14 +1301,14 @@ def phase_window_detector(det, pose, idm, frames):
                 boxes_s, scores_s = perception.detect(frames)
     log(f"k3 detector: detect {len(frames)} frames in {wall:.3f}s (plain window "
         f"attention {wall_p:.3f}s); launches {launches}")
-    if launches["window_attention"] != 24 * len(frames):
-        raise AssertionError("the detector did not launch K3 once per block "
-                             "and frame")
+    if launches["window_attention"] != 24:
+        raise AssertionError("the detector did not launch K3 once per block")
     if not (np.isfinite(boxes).all() and ((scores >= 0) & (scores <= 1)).all()
             and (scores[:, :8] > 0).sum() == (scores_p[:, :8] > 0).sum()):
         raise AssertionError("k3 detector: malformed detections")
-    # the trunk K3 acts in, on the whole chunk at once (one call a block,
-    # each mask read at w % nW across 16 frames), against its plain version
+    # the trunk K3 acts in, as detect runs it (one call a block on the whole
+    # chunk, each mask read at w % nW across 16 frames), against its plain
+    # version
     x = detector_input_batch(perception._rgb(
         torch.from_numpy(frames).to(perception.device)))[0]
     with torch.no_grad():
@@ -1325,13 +1328,14 @@ def phase_int8_detector(frames):
     proj, fc1 and fc2 quantized by ``quantize_swin_`` from a float32 state
     dict drawn from seed 0 (a bf16 model's own weights are already
     rounded), box head's foreground bias +6. ``detect_frames`` on one
-    16-frame chunk runs the trunk frame by frame, so K5b launches 24 x 4 x
-    16 = 1,536 times. Then 2 frames against the same model with
-    ``Int8Linear`` routed to the plain chain on the card (no K5b launch
-    there): K5b is exact, so no Swin map and no int8 activation code may
-    differ, the maps are held to 2^-6 of each map's range besides and the
-    detections through ``check_detections``. The warm chunk timed with CUDA events against the
-    bf16 serving detector of the same weights. Returns the launches."""
+    16-frame chunk runs the trunk once over the chunk, so K5b launches
+    24 x 4 = 96 times, once a layer and block. Then 2 frames against the
+    same model with ``Int8Linear`` routed to the plain chain on the card
+    (no K5b launch there): K5b is exact, so no Swin map and no int8
+    activation code may differ, the maps are held to 2^-6 of each map's
+    range besides and the detections through ``check_detections``. The
+    warm chunk timed with CUDA events against the bf16 serving detector of
+    the same weights. Returns the launches."""
     from unittest import mock
 
     from macaque_tpu_torch import kernels
@@ -1376,9 +1380,9 @@ def phase_int8_detector(frames):
         launches = dict(kernels.LAUNCHES)
         log(f"int8 detector: detect_frames {len(x)} frames in {wall:.3f}s; "
             f"launches {launches}")
-        if launches["quant_int8_matmul"] != 24 * 4 * len(x):
+        if launches["quant_int8_matmul"] != 24 * 4:
             raise AssertionError("the int8 detector did not launch K5b once "
-                                 "per int8 layer, block and frame")
+                                 "per int8 layer and block")
         boxes, scores, valid = (o.float().cpu().numpy() if o.is_floating_point()
                                 else o.cpu().numpy() for o in out)
         if not (np.isfinite(boxes).all() and ((scores >= 0) & (scores <= 1)).all()
@@ -1594,8 +1598,8 @@ def phase_fused_trunk(det, perception, frames):
     maps 2-3 by 22-24% of the range (CPU emulation, two 224x160 frames).
     At initialisation the relative bias is too small to show at this
     level: ``check_swin_block`` holds it at trained scale. Times: the fused trunk, the plain
-    trunk on the whole chunk and frame by frame (as ``detect_frames`` runs
-    it)."""
+    trunk on the whole chunk (as ``detect_frames`` runs it) and frame by
+    frame."""
     from unittest import mock
 
     from macaque_tpu_torch import kernels

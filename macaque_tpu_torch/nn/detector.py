@@ -11,7 +11,8 @@ nms_pre/max 1000 at IoU 0.7 (level-aware NMS), RCNN score_thr 0.05, NMS
 The RoIAlign runs ``nn/roialign.py`` (the CUDA kernel on the card).
 
 Spans (``core/trace.py``): ``detector.trunk`` around :func:`detect_frames`'
-trunk loop, ``detector.head`` around :meth:`SwinMaskRCNN.head`, which holds
+one trunk call over the chunk, counted as ``detector.trunk_calls``,
+``detector.head`` around :meth:`SwinMaskRCNN.head`, which holds
 ``detector.proposals``, ``detector.roi`` and ``detector.box_head``; the
 anchors' copies to the card count as ``host_reads.anchors``, the RoI chunks'
 window read as ``host_reads.roi_buckets``.
@@ -263,13 +264,12 @@ class SwinMaskRCNN(nn.Module):
 
 
 def detect_frames(model: SwinMaskRCNN, images, img_shape=None):
-    """Chunk inference: the trunk one image at a time (as the JAX package
-    maps it), the proposal/RoI/box head batched over the chunk.
-    images (B, H, W, 3) normalized, padded to /32."""
+    """Chunk inference: the trunk and the proposal/RoI/box head each in one
+    call over the whole chunk. The JAX package maps its trunk over the
+    images; every layer of the trunk works image by image, so the results
+    differ only in the order of float sums. images (B, H, W, 3) normalized,
+    padded to /32."""
     with span("detector.trunk"):
-        outs = [model.trunk(images[i:i + 1]) for i in range(images.shape[0])]
-        fpn_feats = [torch.cat([o[0][l] for o in outs])
-                     for l in range(len(outs[0][0]))]
-        rpn_outs = [tuple(torch.cat([o[1][l][j] for o in outs]) for j in range(2))
-                    for l in range(len(outs[0][1]))]
+        count("detector.trunk_calls")
+        fpn_feats, rpn_outs = model.trunk(images)
     return model.head(fpn_feats, rpn_outs, img_shape)

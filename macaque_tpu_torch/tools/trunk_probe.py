@@ -3,8 +3,9 @@
 Port of ``macaque_tpu/tools/trunk_probe.py``. Times the Swin-S trunk
 (``nn/swin.py::SwinBackbone``, bf16, random weights from seed 0) on one
 16-frame 800x608 detector chunk as ``mapN``: the chunk in sub-batches of
-N images, one after another (``map1`` is the production detector's
-frame-by-frame trunk, ``nn/detector.py::detect_frames``).
+N images, one after another (``map16`` is the production detector's
+schedule, ``nn/detector.py::detect_frames``, which runs the trunk once over
+whatever chunk its caller passes; ``map1`` is the frame-by-frame trunk).
 
 The JAX probe's ``remat`` variant (``jax.checkpoint`` on the B=16 trunk,
 to bound XLA's buffer liveness) has no counterpart here: eager

@@ -156,6 +156,23 @@ def test_upload_bytes_are_the_frames_three_times_and_the_box_tables(camera):
     assert rec["host_reads.anchors"] == chunks * 5      # one an FPN level
 
 
+@pytest.mark.parametrize("chunks", [1, 2])
+def test_the_trunk_runs_once_a_chunk_inside_detect(camera, tmp_path, chunks):
+    """A chunk of B frames makes one trunk call, counted as
+    ``detector.trunk_calls``, and the trunk's span stays inside ``detect``."""
+    if chunks == 2:
+        rec, _ = camera
+    else:
+        frames = np.random.default_rng(1).integers(0, 256, (B, H, W, 3),
+                                                   dtype=np.uint8)
+        store = Store(frames)
+        rec = process_camera(store, str(tmp_path), store.ftimes, _perception(),
+                             chunk=B, redo=True, prefetch=False)
+    assert rec["detector.trunk_calls"] == chunks
+    assert rec["detect/detector.trunk"] == pytest.approx(rec["detector.trunk"])
+    assert 0 < rec["detector.trunk"] <= rec["detect"]
+
+
 def _chain(n, step=0.52, w=10.0):
     """n boxes in a row, each overlapping the next (IoU 0.316) and no other,
     scores falling along the row."""
