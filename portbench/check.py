@@ -40,10 +40,16 @@ compared by itself:
 ==================  =====================================================
 
 ``control_judged`` builds the judged side from the reference itself one
-precision step lower: the networks' bfloat16 layers in fp8 (e4m3), the
-serving pose's int8 blocks in int4, and the float32 decoding of boxes,
-scores and keypoints in bfloat16. It is the control that a limit has to
-separate from the program's own readings.
+precision step lower: the networks' bfloat16 layers in fp8 (e4m3), their
+quantized layers one step below (the serving pose's int8 blocks in int4),
+and the float32 decoding of boxes, scores and keypoints in bfloat16. It is
+the control that a limit has to separate from the program's own readings.
+
+Each network comes from the architecture file that its configuration
+block names (``files.arch``): the reference module, its quantization and,
+for the detector, its input and the key of its foreground bias. The
+stages run on a reference detector's ``maps``, ``rpn_head`` and
+``roi_head.bbox_head`` (the contract in ``reference/nets.py``).
 """
 
 from __future__ import annotations
@@ -54,7 +60,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from portbench.reference import detect, lowp, nets, prep, track
+from portbench import files
+from portbench.reference import detect, lowp, prep, track
 from portbench.weights import seeded_state
 
 DETECTOR = ("det_maps", "det_rpn", "det_props", "det_box_px", "det_score",
@@ -80,8 +87,8 @@ class Judged:
 
 
 class Reference:
-    """The three reference networks for a configuration and seed, in
-    float32, or one precision step lower (``lower=True``: the control)."""
+    """The reference networks for a configuration and seed, in float32, or
+    one precision step lower (``lower=True``: the control)."""
 
     def __init__(self, cfg: dict, seed: int, device, fg_bias: float,
                  lower: bool = False):
@@ -89,25 +96,30 @@ class Reference:
         self.cfg, self.device, self.fg_bias = cfg, device, fg_bias
         self.post = torch.bfloat16 if lower else torch.float32
         n = cfg["networks"]
-        self.det = self._net("detector", n["detector"], seed)
-        self.pose = self._net("pose", n["pose"], seed) if "pose" in n else None
-        self.idm = (self._net("classifier", n["classifier"], seed)
+        self.arch = {role: files.arch(block) for role, block in n.items()}
+        self.det = self._net("detector", n["detector"], seed, lower)
+        self.pose = (self._net("pose", n["pose"], seed, lower)
+                     if "pose" in n else None)
+        self.idm = (self._net("classifier", n["classifier"], seed, lower)
                     if "classifier" in n else None)
-        if self.pose is not None and n["pose"]["int8_blocks"]:
-            lowp.quantize_pose_blocks_(self.pose, "int4" if lower else "int8")
-        if lower:
-            for m in (self.det, self.pose, self.idm):
-                if m is not None:
-                    lowp.lower_(m, "fp8")
 
-    def _net(self, kind, c, seed):
+    def _net(self, kind, c, seed, lower):
+        arch = self.arch[kind]
         with torch.device(self.device):
-            net = nets.build(kind, c)
+            net = arch.reference(c)
         sd = seeded_state(kind, c, seed, self.device)
         if kind == "detector":
-            sd["roi_head.bbox_head.fc_cls.bias"][0] += self.fg_bias
+            sd[arch.FG_BIAS][0] += self.fg_bias
         net.load_state_dict(sd)
+        arch.quantize(net, c, lower)
+        if lower:
+            lowp.lower_(net, "fp8")
         return net
+
+    def detector_input(self, rgb):
+        """(B, H, W, 3) RGB -> the reference detector's input and scale."""
+        return self.arch["detector"].reference_input(
+            rgb, self.cfg["networks"]["detector"])
 
 
 def _rgb(frames: np.ndarray, device) -> torch.Tensor:
@@ -140,7 +152,7 @@ def compare(j: Judged, ref: Reference) -> dict:
             and j.det[0].shape == (B, D, 4) and j.det[1].shape == (B, D)):
         return dict.fromkeys(DETECTOR, float("inf"))
     for f in range(B):
-        x, scale = prep.detector_input(rgb[f:f + 1], dc["det_target"])
+        x, scale = ref.detector_input(rgb[f:f + 1])
         img_shape = tuple(x.shape[1:3])
         rmaps = ref.det.maps(x)
         pmaps = [m.float() for m in j.maps[f]]
@@ -241,7 +253,7 @@ def control_judged(j: Judged, low: Reference) -> Judged:
     boxes = np.zeros((len(j.frames), D, 4), np.float32)
     scores = np.zeros((len(j.frames), D), np.float32)
     for f in range(len(j.frames)):
-        x, scale = prep.detector_input(rgb[f:f + 1], dc["det_target"])
+        x, scale = low.detector_input(rgb[f:f + 1])
         img_shape = tuple(x.shape[1:3])
         m = low.det.maps(x)
         r = low.det.rpn_head(m)

@@ -1,6 +1,7 @@
 """Where the benchmark finds its files: each configuration, traffic mix,
 per-layer metric, kernel bound and limit by its name in ``BENCHMARK.json``,
-under this folder."""
+and each network's architecture by the ``arch_file`` that its block in the
+configuration names, under this folder."""
 
 from __future__ import annotations
 
@@ -34,6 +35,36 @@ def load_module(rel: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def arch(block: dict):
+    """The architecture file that a configuration's network block names
+    under ``arch_file`` (relative to this folder); a block without one is
+    an error. Every such file gives, for its network and block:
+
+    * ``program(block, dtype, device)``: the port's module, built through
+      the port's public constructors (the port is imported inside);
+      ``loaded(model, block, state)``: any step after the seeded float32
+      state dict is loaded, such as quantizing; ``perception_kwargs(block)``:
+      the keyword arguments the network gives ``TorchPerception``;
+    * ``reference(block)``: the plain float32 reference module, in
+      evaluation mode, from ``reference/``; ``quantize(net, block, lower)``:
+      the reference's own quantized layers, and with ``lower`` the
+      control's step below them (the check then puts every other layer in
+      fp8);
+    * ``INIT``: initialization rules by key suffix, consulted by
+      ``weights.seeded_state`` for keys that its own rules do not cover;
+    * ``tiny(block)``: the block cut for the CPU tests;
+    * for the detector: ``FG_BIAS``, the state-dict key of the box head's
+      class bias (index 0 the foreground); ``reference_input(rgb, block)``,
+      the reference's padded normalized input and its scale from (B, H, W,
+      3) RGB; ``input_hw(frame_hw, block)``, the padded input's shape, which
+      the operation counts read.
+    """
+    if "arch_file" not in block:
+        raise KeyError(f"the network block {block.get('arch', block)!r} "
+                       "names no arch_file")
+    return load_module(block["arch_file"])
 
 
 def bench(root: str = ROOT) -> dict:

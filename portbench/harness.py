@@ -2,14 +2,14 @@
 the output check and the result line.
 
 The program under test is ``macaque_tpu_torch``: its camera loop
-(``pipeline/step1.py::process_camera``) over a ``TorchPerception`` built
-through the public constructors (``SwinMaskRCNN``, ``ViTPose``,
-``ResNetClassifier``, ``quantize_vitpose_``) from the configuration file,
-its weights loaded from a state dict seeded on the device. The traffic is
-one camera's segment of frames from the mix, served from memory; every
-segment is a fresh ``process_camera`` call with fresh tracker and EMA
-state, as ``run_step1`` gives each camera, writing its ``alldata.json``
-under ``TMPDIR``.
+(``pipeline/step1.py::process_camera``) over a ``TorchPerception`` whose
+three networks (detector, pose, classifier) the architecture files that
+the configuration names (``archs/``) build through the port's public
+constructors, their weights loaded from state dicts seeded on the device.
+The traffic is one camera's segment of frames from the mix, served from
+memory; every segment is a fresh ``process_camera`` call with fresh
+tracker and EMA state, as ``run_step1`` gives each camera, writing its
+``alldata.json`` under ``TMPDIR``.
 
 Set-up runs from the process start to the window: imports, the kernel
 library (built once into ``portbench/.cache/kernels``), the weights, the
@@ -44,61 +44,32 @@ from portbench.weights import seeded_state
 FORBIDDEN = ("jax", "jaxlib", "flax", "macaque_tpu")
 
 
-def det_input_hw(frame_hw, target: int, divisor: int = 32) -> tuple:
-    H, W = frame_hw
-    s = min(target / H, target / W)
-    h, w = int(round(H * s)), int(round(W * s))
-    return -(-h // divisor) * divisor, -(-w // divisor) * divisor
+ROLES = ("detector", "pose", "classifier")
 
 
 def build_program(cfg: dict, mix: dict, seed: int, device: torch.device):
-    """The three networks through the port's constructors, loaded from the
-    seeded state dicts, and the perception over them."""
-    from macaque_tpu_torch.nn import (
-        DetectorConfig, ResNetClassifier, ResNetConfig, SwinMaskRCNN,
-        ViTPose, VitPoseConfig)
-    from macaque_tpu_torch.nn.quant import quantize_vitpose_
-    from macaque_tpu_torch.nn.swin import SwinConfig
+    """The configuration's three networks as their architecture files
+    build them, loaded from the seeded state dicts, and the perception over
+    them; the mix's ``fg_bias`` raises the detector's foreground bias."""
     from macaque_tpu_torch.pipeline.perception import TorchPerception
 
-    card = device.type == "cuda"
-    dt = torch.bfloat16 if card else torch.float32
-    n = cfg["networks"]
-    dc, pc, ic = n["detector"], n["pose"], n["classifier"]
-    swin = SwinConfig(embed_dim=dc["embed_dim"], depths=tuple(dc["depths"]),
-                      num_heads=tuple(dc["num_heads"]), window=dc["window"],
-                      mlp_ratio=dc["mlp_ratio"], patch_size=dc["patch_size"],
-                      compute_dtype=dt)
-    det = SwinMaskRCNN(DetectorConfig(
-        swin=swin, fpn_channels=dc["fpn_channels"], num_classes=dc["num_classes"],
-        rpn_nms_pre=dc["rpn_nms_pre"], rpn_iou_thr=dc["rpn_iou_thr"],
-        rpn_max=dc["rpn_max"], rcnn_score_thr=dc["rcnn_score_thr"],
-        rcnn_iou_thr=dc["rcnn_iou_thr"], rcnn_max=dc["rcnn_max"],
-        rcnn_roi_topk=dc["rcnn_roi_topk"], rcnn_roi_chunk=dc["rcnn_roi_chunk"],
-        compute_dtype=dt), device=device)
-    pose = ViTPose(VitPoseConfig(
-        img_size=tuple(pc["img_size"]), patch_size=pc["patch_size"],
-        patch_padding=pc["patch_padding"], embed_dim=pc["embed_dim"],
-        depth=pc["depth"], num_heads=pc["num_heads"], mlp_ratio=pc["mlp_ratio"],
-        num_keypoints=pc["num_keypoints"],
-        deconv_channels=tuple(pc["deconv_channels"]), compute_dtype=dt,
-        use_pallas_attention=card), device=device)
-    idm = ResNetClassifier(ResNetConfig(depth=ic["depth"],
-                                        num_classes=ic["num_classes"],
-                                        compute_dtype=dt), device=device)
-    sd = seeded_state("detector", dc, seed, device)
-    sd["roi_head.bbox_head.fc_cls.bias"][0] += mix["fg_bias"]
-    det.load_state_dict(sd)
-    sd = seeded_state("pose", pc, seed, device)
-    pose.load_state_dict(sd)
-    if pc["int8_blocks"]:
-        quantize_vitpose_(pose, sd)
-    idm.load_state_dict(seeded_state("classifier", ic, seed, device))
-    del sd
-    perception = TorchPerception(det, pose, idm, max_det=cfg["max_det"],
-                                 det_target=dc["det_target"], device=device,
-                                 flip_test=pc["flip_test"])
-    return perception, (det, pose, idm)
+    dt = torch.bfloat16 if device.type == "cuda" else torch.float32
+    blocks = cfg["networks"]
+    archs = {r: files.arch(blocks[r]) for r in ROLES}
+    models = {r: archs[r].program(blocks[r], dt, device) for r in ROLES}
+    kwargs = {}
+    for r in ROLES:
+        sd = seeded_state(r, blocks[r], seed, device)
+        if r == "detector":
+            sd[archs[r].FG_BIAS][0] += mix["fg_bias"]
+        models[r].load_state_dict(sd)
+        archs[r].loaded(models[r], blocks[r], sd)
+        kwargs.update(archs[r].perception_kwargs(blocks[r]))
+        del sd
+    nets = tuple(models[r] for r in ROLES)
+    perception = TorchPerception(*nets, max_det=cfg["max_det"], device=device,
+                                 **kwargs)
+    return perception, nets
 
 
 def well_formed(rows: list, n: int, D: int) -> bool:
@@ -249,9 +220,9 @@ class Run:
             for k, v in ops.items():
                 total[k] += v * times
 
+        det = n["detector"]
         add(files.load_module(counts["detector"]).ops(
-            n["detector"], det_input_hw(self.mix["frame_hw"],
-                                        n["detector"]["det_target"])), frames)
+            det, files.arch(det).input_hw(self.mix["frame_hw"], det)), frames)
         add(files.load_module(counts["pose"]).ops(n["pose"]), sum(pose_crops))
         add(files.load_module(counts["classifier"]).ops(n["classifier"]),
             sum(id_crops))

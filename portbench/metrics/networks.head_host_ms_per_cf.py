@@ -1,5 +1,5 @@
 """Host milliseconds a camera-frame in the detector's head: the program's
-``detector.head`` span (``SwinMaskRCNN.head``: proposals and the RPN NMS,
+``detector.head`` span (the detector's ``head``: proposals and the RPN NMS,
 the RoI features and K2, the box head and its NMS) summed over the
 window's segments; nothing where the program has no such span."""
 

@@ -1,7 +1,7 @@
 """Host milliseconds a camera-frame in the detector's trunk: the program's
-``detector.trunk`` span (``nn/detector.py::detect_frames``' per-frame trunk
-loop and its concatenations) summed over the window's segments; nothing
-where the program has no such span."""
+``detector.trunk`` span (``nn/detector.py::detect_frames``' one trunk call
+a chunk) summed over the window's segments; nothing where the program has
+no such span."""
 
 
 def read(run, trace):

@@ -12,6 +12,15 @@ kept at the granularity the check compares, not that of the call: the
 detector's outputs one entry a frame, whatever the number of frames a call
 takes, and the heatmaps of every pose call of the chunk, in call order.
 
+Whatever its architecture, a program detector keeps the contract these
+wrappers rely on: ``trunk(images) -> (maps, rpn)``, the pyramid's maps
+and the RPN's (class, box) outputs a level, each with a leading frame
+dimension; ``head(maps, rpn, img_shape)``, which makes the detections;
+and ``_proposals(maps, rpn, img_shape) -> (boxes, valid)``, the ranked
+proposals and their validity, each with a leading frame dimension, which
+the head calls. The pose and classifier networks are called through
+``forward``.
+
 While ``marking`` is on (the traced segment), each span's start and end
 also launch a one-cycle marker kernel on the card (``torch.cuda._sleep``,
 ``spin_kernel`` in the trace) and are listed in ``marks``, in launch order:

@@ -23,6 +23,17 @@ does; the box head, RoIAlign and NMS run in ``reference/detect.py``. The
 GELU is the exact (erf) form everywhere, as published; the program uses
 its tanh form in bfloat16 ViT blocks. The serving tier's int8 pose blocks
 are emulated by ``reference/lowp.py``.
+
+Each configuration's network block names the architecture file under
+``portbench/archs/`` that builds its reference from these classes; a new
+architecture's reference goes into a new file beside this one. A reference
+detector keeps the contract that ``check.py`` and ``reference/detect.py``
+rely on: ``maps(images)`` from the padded normalized (B, H, W, 3) input to
+the pyramid's channels-last maps, the RoI levels first (strides 4 to 32)
+and the RPN's extra level last; ``rpn_head(maps)``, one (class, box)
+pair of channels-last outputs a level, three anchors a position; and
+``roi_head.bbox_head``, which takes (R, 7, 7, C) RoI features to (class
+logits, deltas).
 """
 
 from __future__ import annotations
@@ -365,9 +376,7 @@ class ResNetClassifier(nn.Module):
         return self.head.fc(x.mean((2, 3)))
 
 
-def build(kind: str, c: dict) -> nn.Module:
-    """A reference network of ``kind`` from its configuration block, in
-    evaluation mode."""
-    net = {"detector": Detector, "pose": ViTPose,
-           "classifier": ResNetClassifier}[kind](c)
+def frozen(net: nn.Module) -> nn.Module:
+    """``net`` in evaluation mode, without gradients: how the architecture
+    files (``portbench/archs/``) hand a reference network over."""
     return net.eval().requires_grad_(False)

@@ -1,5 +1,6 @@
 """A tiny cell for the CPU tests: the real cell's files, with every width
-and size cut so that a run takes seconds on the CPU."""
+and size cut so that a run takes seconds on the CPU; each network's cut is
+its architecture file's ``tiny``."""
 
 from __future__ import annotations
 
@@ -25,15 +26,8 @@ def tiny_cell(name: str = "parity.occupied", root: str = ROOT) -> dict:
         config, mix = name.split(".")
         cell = files.assemble(name, f"portbench/configs/{config}.json", mix, spec)
     cfg = copy.deepcopy(cell["config"])
-    n = cfg["networks"]
-    serving = n["detector"]["rcnn_roi_topk"] < n["detector"]["rpn_max"]
-    n["detector"].update(embed_dim=8, depths=[2, 2, 2, 2], num_heads=[1, 1, 2, 2],
-                         fpn_channels=16, rpn_nms_pre=200, rpn_max=50,
-                         rcnn_roi_topk=20 if serving else 50, rcnn_roi_chunk=16,
-                         det_target=96)
-    n["pose"].update(img_size=[32, 24], patch_size=8, embed_dim=32, depth=2,
-                     num_heads=2, deconv_channels=[8, 8])
-    n["classifier"].update(depth=50)
+    cfg["networks"] = {role: files.arch(block).tiny(block)
+                       for role, block in cfg["networks"].items()}
     cfg["max_det"] = 2
     mix = dict(cell["mix"], segment_frames=4, chunk=2, frame_hw=[64, 96])
     cell.update(config=cfg, mix=mix)

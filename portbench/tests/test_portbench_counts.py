@@ -6,8 +6,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from portbench_tiny import tiny_cell
-from portbench import files, harness, peaks
-from portbench.reference import nets
+from portbench import files, peaks
 
 
 def _flops(fn):
@@ -27,8 +26,9 @@ def cfg():
 
 def test_detector_count(cfg):
     c = cfg["networks"]["detector"]
-    hw = harness.det_input_hw([64, 96], c["det_target"])
-    det = nets.build("detector", c)
+    arch = files.arch(c)
+    hw = arch.input_hw([64, 96], c)
+    det = arch.reference(c)
     x = torch.zeros(1, *hw, 3)
     R = c["rcnn_roi_topk"]
 
@@ -50,7 +50,7 @@ def test_detector_count_at_full_width():
 @pytest.mark.parametrize("int8", [False, True])
 def test_pose_count(cfg, int8):
     c = dict(cfg["networks"]["pose"], int8_blocks=int8)
-    vit = nets.build("pose", c)
+    vit = files.arch(c).reference(c)
     ops = files.load_module("counts/pose.py").ops(c)
     assert _total(ops) == _flops(lambda: vit(torch.zeros(1, *c["img_size"], 3)))
     assert (ops["int8"] > 0) == int8
@@ -64,8 +64,9 @@ def test_pose_count_at_full_width():
 
 
 def test_classifier_count():
-    c = {"depth": 50, "num_classes": 6, "crop": 64}
-    net = nets.build("classifier", c)
+    c = {"arch_file": "archs/resnet_classifier.py", "depth": 50,
+         "num_classes": 6, "crop": 64}
+    net = files.arch(c).reference(c)
     ops = files.load_module("counts/classifier.py").ops(c)
     assert _total(ops) == _flops(lambda: net(torch.zeros(1, 64, 64, 3)))
     full = files.load_module("counts/classifier.py").ops(

@@ -49,7 +49,10 @@ def test_the_reference_imports_nothing_of_the_program():
     last = _python(
         "import sys\n"
         "import portbench.check, portbench.weights\n"
+        "from portbench import files\n"
         "from portbench.reference import detect, lowp, nets, prep, track\n"
+        "for b in files.load_json('configs/parity.json')['networks'].values():\n"
+        "    files.arch(b).reference(files.arch(b).tiny(b))\n"
         "print(sorted({m.split('.')[0] for m in sys.modules} & "
         "{'macaque_tpu_torch', 'macaque_tpu', 'jax', 'jaxlib', 'flax'}))\n")
     assert last == "[]"

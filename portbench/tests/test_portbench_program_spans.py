@@ -16,20 +16,24 @@ PB = os.path.dirname(HERE)
 NEW = ("perception.upload_ms_per_cf", "perception.upload_mib_per_cf",
        "perception.host_reads_per_cf", "networks.trunk_host_ms_per_cf",
        "networks.head_host_ms_per_cf")
-# the benchmark's files before these metrics (first 16 hex digits of each
-# SHA-256); the metrics came as new files alone. A change of the benchmark
-# that edits one of these files updates its digest here.
+# the benchmark's files (first 16 hex digits of each SHA-256), those before
+# these metrics, which came as new files alone, and those added since,
+# among them the architecture files (``archs/``). Only a change of the
+# benchmark edits one of these files, and it updates the digest here.
 BEFORE = {
     "__init__.py": "e3b0c44298fc1c14",
-    "check.py": "52f91721eaf16750",
-    "configs/parity.json": "8501f7c88962ff89",
-    "configs/serving.json": "0415eede7aa576c6",
+    "archs/resnet_classifier.py": "34ab8516f17e7654",
+    "archs/swin_mask_rcnn.py": "7d338a2e63a3f9d0",
+    "archs/vitpose.py": "c918a3e5e2756f61",
+    "check.py": "d06fa598cf3a0ba1",
+    "configs/parity.json": "2ddc336346d7a7e5",
+    "configs/serving.json": "e1527d8b1d104b4d",
     "counts/classifier.py": "12413afcf3505f0d",
     "counts/detector.py": "e8356a9b8cb3fe5d",
     "counts/pose.py": "c981f141a53916ed",
     "devtrace.py": "db6359ab64e6dc86",
-    "files.py": "85bfd9110fad2445",
-    "harness.py": "f5e37257daf4f82e",
+    "files.py": "7e72fa90dee71a47",
+    "harness.py": "7d01321e44583ab4",
     "limits/parity.empty.json": "9caa21545fd905b0",
     "limits/parity.occupied.json": "f8179e0cb99da0a2",
     "limits/serving.occupied.json": "42ea83499d35c4c8",
@@ -39,9 +43,14 @@ BEFORE = {
     "metrics/kernels.k5b_roofline.py": "1e5c6f56dfe922a8",
     "metrics/loop.host_ms_per_cf.py": "39652daec3b9a5e8",
     "metrics/networks.detector_device_ms_per_cf.py": "2ce68fbcc74a8b62",
+    "metrics/networks.head_host_ms_per_cf.py": "deabf1e7f05dbe48",
     "metrics/networks.pose_device_ms_per_cf.py": "23b91ffb3f2a6897",
+    "metrics/networks.trunk_host_ms_per_cf.py": "04c8fe5817a88573",
     "metrics/perception.detect_ms_per_cf.py": "ae7e1bfa75fbb073",
+    "metrics/perception.host_reads_per_cf.py": "ef834285a763341c",
     "metrics/perception.pose_id_ms_per_cf.py": "435e62a1917bcaf8",
+    "metrics/perception.upload_mib_per_cf.py": "4998a24b07cf63a2",
+    "metrics/perception.upload_ms_per_cf.py": "a1e5cdfea782bb69",
     "metrics/perception_mfu.py": "434d3c1ee2d511cc",
     "metrics/setup_s.py": "8e970d9941721d5f",
     "metrics/stage1_cf_s.py": "538f9a1790664aef",
@@ -49,26 +58,28 @@ BEFORE = {
     "mixes/occupied.json": "e7f736624be8aac5",
     "peaks.py": "9bd61038c683b7e6",
     "readings.py": "dbdb309448a87744",
-    "recorder.py": "fe2929da227e0705",
+    "recorder.py": "29359fc17c4c57c8",
     "reference/__init__.py": "e3b0c44298fc1c14",
     "reference/detect.py": "0b2c4050ab189f49",
     "reference/lowp.py": "3c4d53a6539592a5",
-    "reference/nets.py": "f42fb2edf54df17f",
+    "reference/nets.py": "c2b99415d2337404",
     "reference/prep.py": "a639c98ef05adddb",
     "reference/track.py": "c01350cba27bfb7f",
     "rooflines/k1.py": "be3ea67338666b98",
     "rooflines/k5b.py": "1b9260f3b9e82e9b",
     "run.py": "b7b6f5293c627636",
-    "tests/portbench_tiny.py": "de1c4dcc86a5053f",
-    "tests/test_portbench_counts.py": "aaa4a3c63459801a",
+    "tests/portbench_tiny.py": "6ce8768c2d270ae9",
+    "tests/test_portbench_counts.py": "14a767627adddf70",
     "tests/test_portbench_discovery.py": "0c3b91b380f672ab",
     "tests/test_portbench_faults.py": "4b6addadfc824f7d",
     "tests/test_portbench_flow.py": "0a3ce49e5b71b015",
-    "tests/test_portbench_modules.py": "c1da0b9955c7a695",
+    "tests/test_portbench_modules.py": "f8e9bb2cf753b9e5",
+    "tests/test_portbench_new_arch.py": "545999f8d0f229c7",
     "tests/test_portbench_nocard.py": "92c412a02dedf7ef",
-    "tests/test_portbench_reference.py": "8b0f82bbd5d07e49",
+    "tests/test_portbench_pins.py": "d027c05a62b3463f",
+    "tests/test_portbench_reference.py": "699ff6f1740bff6c",
     "traffic.py": "16032ac6bc76e30c",
-    "weights.py": "ed762b67d5588bef",
+    "weights.py": "c153a583fd38b28d",
 }
 
 

@@ -6,8 +6,8 @@ import pytest
 import torch
 
 from portbench_tiny import tiny_cell
-from portbench import harness, traffic
-from portbench.reference import lowp, nets, prep
+from portbench import files, harness, traffic
+from portbench.reference import lowp, prep
 from portbench.weights import seeded_state
 
 
@@ -19,10 +19,11 @@ def models():
     n = cell["config"]["networks"]
     ref = {}
     for kind in ("detector", "pose", "classifier"):
+        arch = files.arch(n[kind])
         sd = seeded_state(kind, n[kind], 11, "cpu")
         if kind == "detector":
-            sd["roi_head.bbox_head.fc_cls.bias"][0] += cell["mix"]["fg_bias"]
-        ref[kind] = nets.build(kind, n[kind])
+            sd[arch.FG_BIAS][0] += cell["mix"]["fg_bias"]
+        ref[kind] = arch.reference(n[kind])
         ref[kind].load_state_dict(sd)
     frames = traffic.frames(cell["mix"], 11, "cpu")
     return cell, (det, pose, idm), ref, frames
