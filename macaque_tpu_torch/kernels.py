@@ -41,7 +41,7 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 LAUNCHES = {"packed_attention": 0, "roi_align_windowed": 0, "quantize_rows": 0,
             "quant_int8_matmul": 0, "window_attention": 0, "attention": 0,
-            "swin_block": 0}
+            "swin_block": 0, "relpos_attention": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -121,6 +121,9 @@ def library() -> ctypes.CDLL:
             lib.macaque_window_attention.restype = i
             lib.macaque_attention.argtypes = [p, p, p, p, i, i, i, i, f, p]
             lib.macaque_attention.restype = i
+            lib.macaque_relpos_attention.argtypes = [p, p, p, p, i, i, i, i, i,
+                                                     f, p]
+            lib.macaque_relpos_attention.restype = i
             for fn in (lib.macaque_attention_blocks_per_sm,
                        lib.macaque_packed_attention_blocks_per_sm,
                        lib.macaque_quant_int8_matmul_blocks_per_sm,
@@ -130,6 +133,9 @@ def library() -> ctypes.CDLL:
             lib.macaque_window_attention_blocks_per_sm.argtypes = [
                 i, i, ctypes.POINTER(i)]
             lib.macaque_window_attention_blocks_per_sm.restype = i
+            lib.macaque_relpos_attention_blocks_per_sm.argtypes = [
+                i, ctypes.POINTER(i)]
+            lib.macaque_relpos_attention_blocks_per_sm.restype = i
             lib.macaque_swin_block_slots.argtypes = [i, ctypes.POINTER(i)]
             lib.macaque_swin_block_slots.restype = i
             lib.macaque_swin_block_layout.argtypes = [
@@ -143,9 +149,10 @@ def library() -> ctypes.CDLL:
 
 def resident_blocks(name: str, *variant: int) -> int:
     """Blocks of the kernel ``name`` ("attention", "packed_attention",
-    "quant_int8_matmul" (K5b's GEMM), "roi_align_windowed", or
+    "quant_int8_matmul" (K5b's GEMM), "roi_align_windowed",
     "window_attention" with the variant ``dtype, blocked``: dtype 0 = f32,
-    1 = bf16) that one SM of the current device keeps resident."""
+    1 = bf16, or "relpos_attention" with the variant ``grid``, 14 or 64)
+    that one SM of the current device keeps resident."""
     n = ctypes.c_int(0)
     query = getattr(library(), f"macaque_{name}_blocks_per_sm")
     check(query(*variant, ctypes.byref(n)), f"{name} occupancy")

@@ -13,6 +13,12 @@ It replaces ``macaque_tpu/nn/pallas_attention.py::fused_attention_packed``.
 tensor the kernel in ``csrc/window_attention.cu`` (49 tokens, d = 32: the
 Swin-S shapes), on a CPU tensor ``window_attention_reference``.
 
+``relpos_attention`` is ViTDet's attention with decomposed relative
+position (``nn/vit.py::Attention`` with ``rel_pos``): on a CUDA tensor the
+kernel in ``csrc/relpos_attention.cu`` (K7: bf16, 14 x 14 windows or a
+64 x 64 grid, d = 80: the ViTDet-H shapes), on a CPU tensor
+``relpos_attention_reference``. It has no counterpart in the JAX package.
+
 ``fused_attention`` and ``fused_attention_blocked`` are the same file's two
 unpacked kernels (one grid step per batch element and head, or per batch
 element with the heads in turn), and ``attention`` its dispatcher: all three
@@ -213,3 +219,70 @@ def fused_attention_blocked(q, k, v) -> torch.Tensor:
 def attention(q, k, v) -> torch.Tensor:
     """The dispatcher: the kernel on CUDA, the plain version on the CPU."""
     return _unpacked_attention(q, k, v, "attention")
+
+
+def relpos_attention_reference(qkv, rel_h, rel_w, heads: int) -> torch.Tensor:
+    """Plain version of K7. qkv (B, T, 3C) of tokens on a gh x gw grid
+    (T = gh gw, row-major), rel_h (B, heads, T, gh) and rel_w (B, heads, T,
+    gw) float32, the factors ``q . Rh[q_h - k_h]`` and ``q . Rw[q_w - k_w]``
+    of the unscaled queries -> (B, T, C) in qkv's dtype:
+    ``S[q, k] = (Q K^T)[q, k] * scale + rel_h[q, k_h] + rel_w[q, k_w]``
+    and the softmax in (at least) f32, the probabilities rounded to the
+    input dtype before P V (as K1 and K7 round them), P V in f32."""
+    B, T, C3 = qkv.shape
+    C = C3 // 3
+    D = C // heads
+    gh, gw = rel_h.shape[-1], rel_w.shape[-1]
+    acc = acc_dtype(qkv.dtype)
+    q, k, v = qkv.reshape(B, T, 3, heads, D).to(acc).permute(2, 0, 3, 1, 4)
+    s = (q @ k.transpose(-1, -2)) * (D ** -0.5)
+    s = (s.reshape(B, heads, T, gh, gw) + rel_h.to(acc)[..., :, None]
+         + rel_w.to(acc)[..., None, :]).reshape(B, heads, T, T)
+    p = torch.softmax(s, dim=-1).to(qkv.dtype).to(acc)
+    out = p @ v                                   # (B, heads, T, D)
+    return out.transpose(1, 2).reshape(B, T, C).to(qkv.dtype)
+
+
+# the grids K7 was built for: ViTDet-H's 14 x 14 windows and its 64 x 64
+# global map
+_RELPOS_GRIDS = (14, 64)
+
+
+def relpos_attention(qkv, rel_h, rel_w, heads: int) -> torch.Tensor:
+    """(B, T, 3C) -> (B, T, C) attention with decomposed relative position;
+    the kernel on CUDA (bf16, square grids of side 14 or 64, d = 80), the
+    plain version on the CPU."""
+    if qkv.device.type == "cpu":
+        return relpos_attention_reference(qkv, rel_h, rel_w, heads)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"relpos_attention: unsupported device {qkv.device}")
+    kernels.refuse_grad("relpos_attention", qkv, rel_h, rel_w)
+    if qkv.dim() != 3 or qkv.shape[-1] % (3 * heads):
+        raise ValueError(f"relpos_attention: bad qkv shape {tuple(qkv.shape)}"
+                         f" for {heads} heads")
+    B, T, C3 = qkv.shape
+    D = C3 // 3 // heads
+    if qkv.dtype != torch.bfloat16:
+        raise TypeError(f"relpos_attention: kernel takes bfloat16, got {qkv.dtype}")
+    g = rel_h.shape[-1] if rel_h.dim() == 4 else -1
+    if g not in _RELPOS_GRIDS or T != g * g or D != 80:
+        raise ValueError(f"relpos_attention: kernel built for square grids of "
+                         f"side {_RELPOS_GRIDS} and d=80; got T={T}, grid "
+                         f"{g}, d={D}")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError("relpos_attention: qkv must be contiguous and 16-byte "
+                         "aligned")
+    for t in (rel_h, rel_w):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (B, heads, T, g)
+                or not t.is_contiguous() or t.device != qkv.device):
+            raise ValueError(f"relpos_attention: rel_h and rel_w must be "
+                             f"contiguous float32 ({B}, {heads}, {T}, {g}) on "
+                             f"{qkv.device}")
+    out = torch.empty((B, T, C3 // 3), dtype=qkv.dtype, device=qkv.device)
+    if B:
+        kernels.launch(
+            "relpos_attention", "relpos_attention", qkv.device,
+            ctypes.c_void_p(qkv.data_ptr()), ctypes.c_void_p(rel_h.data_ptr()),
+            ctypes.c_void_p(rel_w.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            B, T, heads, D, g, float(D ** -0.5))
+    return out

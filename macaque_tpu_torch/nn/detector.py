@@ -9,6 +9,11 @@ nms_pre/max 1000 at IoU 0.7 (level-aware NMS), RCNN score_thr 0.05, NMS
 0.5, max 100, with fixed output sizes. Module names follow mmdet
 (``neck.fpn_convs.0.conv``, ``roi_head.bbox_head.shared_fcs.0``).
 The RoIAlign runs ``nn/roialign.py`` (the CUDA kernel on the card).
+``TwoStageDetector`` holds what any trunk shares: the proposals, the RoI
+features, the box head and its NMS; ``SwinMaskRCNN`` and
+``nn/vitdet.py::ViTDetMaskRCNN`` register their own trunk on it. The RPN
+head takes a number of convolutions and the box head optional shared
+convolutions with LayerNorm2d (mmdet's Shared4Conv1FC).
 
 Spans (``core/trace.py``): ``detector.trunk`` around :func:`detect_frames`'
 one trunk call over the chunk, counted as ``detector.trunk_calls``,
@@ -29,7 +34,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from macaque_tpu_torch.core.trace import count, span
-from macaque_tpu_torch.nn.layers import Conv2d, Linear, nhwc_conv
+from macaque_tpu_torch.nn.layers import Conv2d, LayerNorm2d, Linear, nhwc_conv
 from macaque_tpu_torch.nn.ops import (
     _roi_level_canvas, batched_nms_fixed, delta2bbox, make_anchors, nms_fixed)
 from macaque_tpu_torch.nn.roialign import (
@@ -98,65 +103,117 @@ class FPN(nn.Module):
         return [o.permute(0, 2, 3, 1) for o in outs]
 
 
-class RPNHead(nn.Module):
-    def __init__(self, cfg: DetectorConfig, device=None):
+class NormConvModule(nn.Module):
+    """mmcv's ConvModule with a norm: a bias-free convolution, LayerNorm2d
+    over its channels, then ReLU where ``relu``; on channels-last maps."""
+
+    def __init__(self, cin, cout, k, dtype, device=None, relu=False):
         super().__init__()
-        C = cfg.fpn_channels
-        self.rpn_conv = Conv2d(C, C, 3, padding=1, device=device,
-                               dtype=cfg.compute_dtype)
+        self.conv = Conv2d(cin, cout, k, padding=k // 2, bias=False,
+                           device=device, dtype=dtype)
+        # mmcv names a norm whose class it cannot place (mmdet's LN2d)
+        # ``norm_layer``
+        self.norm_layer = LayerNorm2d(cout, device=device)
+        self.relu = relu
+
+    def forward(self, x):                       # (B, H, W, C)
+        x = self.norm_layer(nhwc_conv(self.conv, x))
+        return F.relu(x) if self.relu else x
+
+
+class RPNHead(nn.Module):
+    """mmdet's RPNHead: ``num_convs`` 3x3 convolutions, each followed by a
+    ReLU (one: ``rpn_conv``; more: ``rpn_conv.<i>.conv``, mmcv
+    ConvModules), then the float32 1x1 class and box outputs."""
+
+    def __init__(self, cfg: DetectorConfig, device=None, num_convs: int = 1):
+        super().__init__()
+        C, dt = cfg.fpn_channels, cfg.compute_dtype
+        if num_convs == 1:
+            self.rpn_conv = Conv2d(C, C, 3, padding=1, device=device, dtype=dt)
+        else:
+            self.rpn_conv = nn.Sequential(*[
+                ConvModule(C, C, 3, dt, device) for _ in range(num_convs)])
         self.rpn_cls = Conv2d(C, 3, 1, device=device)
         self.rpn_reg = Conv2d(C, 12, 1, device=device)
+
+    def _convs(self, f):
+        if isinstance(self.rpn_conv, nn.Sequential):
+            for m in self.rpn_conv:
+                f = F.relu(nhwc_conv(m.conv, f))
+            return f
+        return F.relu(nhwc_conv(self.rpn_conv, f))
 
     def forward(self, feats):
         outs = []
         for f in feats:
-            h = F.relu(nhwc_conv(self.rpn_conv, f))
+            h = self._convs(f)
             outs.append((nhwc_conv(self.rpn_cls, h), nhwc_conv(self.rpn_reg, h)))
         return outs
 
 
 class BBoxHead(nn.Module):
-    def __init__(self, cfg: DetectorConfig, device=None):
+    """mmdet's ConvFCBBoxHead on 7x7 RoI features: ``num_convs`` shared 3x3
+    convolutions (256 channels, LayerNorm2d, ReLU) and ``num_fcs`` shared
+    1024-wide FC layers (ReLU), then the float32 class and box outputs.
+    Shared2FC (the Swin-S detector) is (0, 2), Shared4Conv1FC (ViTDet) is
+    (4, 1)."""
+
+    def __init__(self, cfg: DetectorConfig, device=None, num_convs: int = 0,
+                 num_fcs: int = 2):
         super().__init__()
         kw = dict(device=device, dtype=cfg.compute_dtype)
+        C = cfg.fpn_channels
+        self.shared_convs = nn.ModuleList([
+            NormConvModule(C, C, 3, cfg.compute_dtype, device, relu=True)
+            for _ in range(num_convs)])
         self.shared_fcs = nn.ModuleList([
-            Linear(cfg.fpn_channels * 49, 1024, **kw), Linear(1024, 1024, **kw)])
+            Linear(C * 49 if i == 0 else 1024, 1024, **kw)
+            for i in range(num_fcs)])
         self.fc_cls = Linear(1024, cfg.num_classes + 1, device=device)
         self.fc_reg = Linear(1024, 4 * cfg.num_classes, device=device)
 
     def forward(self, roi_feats):
         """(R, 7, 7, C) channels-last RoI features, flattened (C, 7, 7) as
         mmdet does -> (cls logits (R, 2), deltas (R, 4)), float32."""
-        x = roi_feats.permute(0, 3, 1, 2).reshape(roi_feats.shape[0], -1)
-        x = F.relu(self.shared_fcs[1](F.relu(self.shared_fcs[0](x))))
+        x = roi_feats
+        for m in self.shared_convs:
+            x = m(x)
+        x = x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
+        for fc in self.shared_fcs:
+            x = F.relu(fc(x))
         return self.fc_cls(x), self.fc_reg(x)
 
 
 class RoIHead(nn.Module):
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, **bbox_head):
         super().__init__()
-        self.bbox_head = BBoxHead(cfg, device)
+        self.bbox_head = BBoxHead(cfg, device, **bbox_head)
 
 
-class SwinMaskRCNN(nn.Module):
-    """The detector, built in inference mode; :func:`detect_frames` runs a
-    batch of padded normalized inputs through it. After
-    ``nn.layers.make_trainable`` its ``trunk`` and ``roi_head.bbox_head``
-    carry gradients (``nn/train.py`` feeds the box head through the plain
-    ``roi_align_windowed_reference``: the kernel has no backward)."""
+class TwoStageDetector(nn.Module):
+    """A two-stage detector over a pluggable trunk: a subclass registers
+    ``backbone``, ``neck``, ``rpn_head`` and ``roi_head`` and may override
+    :meth:`trunk`; the proposals, the RoI features (K2) and the box head
+    with its NMS are shared. :func:`detect_frames` runs a batch of padded
+    normalized inputs through it. The contract the benchmark's recorder and
+    check hold: ``trunk(images) -> (maps, rpn)``, ``head(maps, rpn,
+    img_shape)`` and ``_proposals(maps, rpn, img_shape)``."""
 
-    def __init__(self, cfg: DetectorConfig = DetectorConfig(), device=None):
+    # the side of the square a subclass's input is padded to (ViTDet's
+    # 1024), which ``TorchPerception`` reads; None: padded to /32
+    square = None
+
+    def __init__(self, cfg: DetectorConfig):
         super().__init__()
         self.cfg = cfg
-        self.backbone = SwinBackbone(cfg.swin, device)
-        self.neck = FPN(cfg, device)
-        self.rpn_head = RPNHead(cfg, device)
-        self.roi_head = RoIHead(cfg, device)
+
+    def _frozen(self):
         self.eval()
         self.requires_grad_(False)
 
     def trunk(self, images):
-        """Backbone + FPN + RPN convs on (B, H, W, 3) inputs."""
+        """Backbone + neck + RPN convs on (B, H, W, 3) inputs."""
         fpn_feats = self.neck(self.backbone(images))
         return fpn_feats, self.rpn_head(fpn_feats)
 
@@ -263,12 +320,27 @@ class SwinMaskRCNN(nn.Module):
         return out_b, out_s, valid
 
 
-def detect_frames(model: SwinMaskRCNN, images, img_shape=None):
+class SwinMaskRCNN(TwoStageDetector):
+    """The Swin-S detector, built in inference mode. After
+    ``nn.layers.make_trainable`` its ``trunk`` and ``roi_head.bbox_head``
+    carry gradients (``nn/train.py`` feeds the box head through the plain
+    ``roi_align_windowed_reference``: the kernel has no backward)."""
+
+    def __init__(self, cfg: DetectorConfig = DetectorConfig(), device=None):
+        super().__init__(cfg)
+        self.backbone = SwinBackbone(cfg.swin, device)
+        self.neck = FPN(cfg, device)
+        self.rpn_head = RPNHead(cfg, device)
+        self.roi_head = RoIHead(cfg, device)
+        self._frozen()
+
+
+def detect_frames(model: TwoStageDetector, images, img_shape=None):
     """Chunk inference: the trunk and the proposal/RoI/box head each in one
     call over the whole chunk. The JAX package maps its trunk over the
     images; every layer of the trunk works image by image, so the results
-    differ only in the order of float sums. images (B, H, W, 3) normalized,
-    padded to /32."""
+    differ only in the order of float sums. images (B, H, W, 3) normalized
+    and padded (to /32, or to the ViTDet detector's square)."""
     with span("detector.trunk"):
         count("detector.trunk_calls")
         fpn_feats, rpn_outs = model.trunk(images)

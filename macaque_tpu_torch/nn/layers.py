@@ -103,6 +103,35 @@ class FusedLayerNorm(nn.Module):
         return ((x32 - mean) * inv * self.weight + self.bias).to(x.dtype)
 
 
+class LayerNorm(FusedLayerNorm):
+    """:class:`FusedLayerNorm` in one pass: ``F.layer_norm`` of the input in
+    its own dtype, which computes the statistics (Welford's, not ``E[x^2] -
+    E[x]^2``) and the affine map in float32 and writes the input's dtype.
+    The kernel takes the scale and shift in the input's dtype, so they are
+    cast to it at each call (the float32 parameters stay as loaded). On a
+    bf16 map it reads the input once and writes it once, where the float32
+    chain of the parent makes a float32 copy and several float32 passes.
+    ViTDet's norms. ViTPose and Swin-S keep the parent: this one moves
+    their outputs by float32 rounding (the benchmark pins their check
+    numbers bit for bit), and on the card it would round a checkpoint's
+    float32 scale and shift to bf16, where the JAX package keeps them
+    float32."""
+
+    def forward(self, x):
+        return F.layer_norm(x, (x.shape[-1],), self.weight.to(x.dtype),
+                            self.bias.to(x.dtype), self.eps)
+
+
+class LayerNorm2d(LayerNorm):
+    """mmdet's ``LN2d`` (detectron2's ``LayerNorm2d``): LayerNorm over the
+    channels of a map at each position. On the port's channels-last
+    (B, H, W, C) maps the channels are the last axis, so it is
+    :class:`LayerNorm` with mmdet's eps of 1e-6."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, device=None):
+        super().__init__(dim, eps, device)
+
+
 def nhwc_conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Apply an NCHW convolution to a channels-last (B, H, W, C) tensor."""
     return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)

@@ -4,7 +4,8 @@ pose crops, classifier crops.
 The conventions of ``macaque_tpu/nn/preprocess.py``: every resample is
 axis-separable bilinear interpolation written as two products with
 interpolation matrices (border replication folded into the matrices):
-  * detector resize: cv2 half-pixel convention, keep-ratio to 800, pad /32;
+  * detector resize: cv2 half-pixel convention, keep-ratio to 800, pad /32
+    (ViTDet: keep-ratio to 1024, pad to the 1024 square);
   * pose crops: mmpose UDP warp, bbox -> center/scale with 1.25 padding
     and aspect snap;
   * ID crops: crop, resize 256x256, center-crop 224.
@@ -67,16 +68,21 @@ def resize_bilinear(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     return _resample(img[None], _interp_matrix(ys, H), _interp_matrix(xs, W))[0]
 
 
-def detector_input(img: torch.Tensor, target: int = 800, divisor: int = 32):
+def detector_input(img: torch.Tensor, target: int = 800, divisor: int = 32,
+                   square: int | None = None):
     """One image: (H, W, 3) -> (padded normalized (1, Hp, Wp, 3), scale,
     (h_res, w_res)), ``detector_input_batch`` of ``img[None]``."""
-    return detector_input_batch(img[None], target, divisor)
+    return detector_input_batch(img[None], target, divisor, square)
 
 
 def detector_input_batch(imgs: torch.Tensor, target: int = 800,
-                         divisor: int = 32):
+                         divisor: int = 32, square: int | None = None):
     """(B, H, W, 3) -> (padded normalized (B, Hp, Wp, 3), scale,
-    (h_res, w_res)); scale and padding are functions of the input shape."""
+    (h_res, w_res)); scale and padding are functions of the input shape.
+    The resized image is zero-padded after normalization to a multiple of
+    ``divisor``, or with ``square`` to ``square`` x ``square``
+    (detectron2's ``ImageList.from_tensors(square_size=...)``, ViTDet's
+    1024)."""
     B, H, W, _ = imgs.shape
     scale = min(target / H, target / W)
     h_res, w_res = int(round(H * scale)), int(round(W * scale))
@@ -85,8 +91,14 @@ def detector_input_batch(imgs: torch.Tensor, target: int = 800,
     xs = (torch.arange(w_res, device=dev, dtype=torch.float32) + 0.5) * (W / w_res) - 0.5
     norm = normalize_rgb(_resample(imgs, _interp_matrix(ys, H),
                                    _interp_matrix(xs, W)))
-    Hp = -(-h_res // divisor) * divisor
-    Wp = -(-w_res // divisor) * divisor
+    if square is not None:
+        if max(h_res, w_res) > square:
+            raise ValueError(f"detector_input: a {h_res}x{w_res} image does "
+                             f"not fit a {square} square")
+        Hp = Wp = square
+    else:
+        Hp = -(-h_res // divisor) * divisor
+        Wp = -(-w_res // divisor) * divisor
     padded = torch.nn.functional.pad(norm, (0, 0, 0, Wp - w_res, 0, Hp - h_res))
     return padded, scale, (h_res, w_res)
 

@@ -13,7 +13,9 @@ the default ``False`` it runs the plain, differentiable
 ``packed_attention_reference``, JAX's ``jax.nn.dot_product_attention``
 numerics (the path training takes). ``VitPoseConfig(quantize="int8")``
 builds the block Dense layers as ``nn/quant.py::Int8Linear`` (the int8
-serving tiers).
+serving tiers). ``Attention`` and ``Block`` take ViTDet's options too
+(windowed or global attention on a map, decomposed relative position:
+``nn/vitdet.py``); their defaults are the ViTPose path.
 Inputs and outputs are channels-last, as in the JAX
 package.
 """
@@ -25,9 +27,12 @@ from typing import Any, Tuple
 
 import torch
 from torch import nn
+import torch.nn.functional as F
 
+from macaque_tpu_torch.core.trace import count
 from macaque_tpu_torch.nn.attention import (
-    packed_attention, packed_attention_reference)
+    packed_attention, packed_attention_reference, relpos_attention,
+    relpos_attention_reference)
 from macaque_tpu_torch.nn.layers import (
     BatchNorm2d, Conv2d, ConvTranspose2d, FusedLayerNorm, Linear, gelu)
 from macaque_tpu_torch.nn.quant import Int8Linear
@@ -66,31 +71,94 @@ class VitPoseConfig:
 
 
 def _dense(cfg: VitPoseConfig, cin: int, cout: int, device=None):
-    """Block Dense layer: the int8 serving layer or the float Linear."""
-    if cfg.quantize == "int8":
+    """Block Dense layer: the int8 serving layer or the float Linear (a
+    config without ``quantize``, as ViTDet's, is float)."""
+    if getattr(cfg, "quantize", None) == "int8":
         return Int8Linear(cin, cout, device=device)
     return Linear(cin, cout, device=device, dtype=cfg.compute_dtype)
 
 
+def _rel_table(table: torch.Tensor, g: int) -> torch.Tensor:
+    """(2g - 1, d) table -> (g, g, d): entry [i, j] = table[i - j + g - 1],
+    detectron2's ``get_rel_pos`` where queries and keys share one grid."""
+    idx = (torch.arange(g, device=table.device)[:, None]
+           - torch.arange(g, device=table.device)[None, :] + g - 1)
+    return table[idx]
+
+
+def window_partition(x: torch.Tensor, w: int):
+    """(B, H, W, C) -> ((B * nW, w, w, C) windows, (Hp, Wp)): the map
+    zero-padded at the bottom and right to whole windows, then cut into
+    them row by row (detectron2's ``window_partition``)."""
+    B, H, W, C = x.shape
+    ph, pw = (w - H % w) % w, (w - W % w) % w
+    if ph or pw:
+        x = F.pad(x, (0, 0, 0, pw, 0, ph))
+    Hp, Wp = H + ph, W + pw
+    x = x.reshape(B, Hp // w, w, Wp // w, w, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, w, w, C), (Hp, Wp)
+
+
+def window_unpartition(x: torch.Tensor, w: int, padded, hw) -> torch.Tensor:
+    """The inverse of :func:`window_partition`, cropped back to ``hw``."""
+    Hp, Wp = padded
+    H, W = hw
+    C = x.shape[-1]
+    B = x.shape[0] // (Hp // w * (Wp // w))
+    x = x.reshape(B, Hp // w, Wp // w, w, w, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, Hp, Wp, C)[:, :H, :W]
+
+
 class Attention(nn.Module):
-    def __init__(self, cfg: VitPoseConfig, device=None):
+    """Multi-head attention over the packed qkv Dense output. With
+    ``rel_pos`` = (gh, gw) the tokens are a gh x gw grid and the scores take
+    ViTDet's decomposed relative position (``rel_pos_h``, ``rel_pos_w``):
+    the float32 factors ``q . Rh`` and ``q . Rw`` (q unscaled) are one
+    product each, and the attention is ``nn/attention.py``'s
+    ``relpos_attention`` (K7 on the card) or its plain version."""
+
+    def __init__(self, cfg: VitPoseConfig, device=None, rel_pos=None):
         super().__init__()
         self.heads = cfg.num_heads
         self.use_kernel = cfg.use_pallas_attention
         self.qkv = _dense(cfg, cfg.embed_dim, 3 * cfg.embed_dim, device)
         self.proj = _dense(cfg, cfg.embed_dim, cfg.embed_dim, device)
+        self.rel_pos = rel_pos
+        if rel_pos is not None:
+            hd = cfg.embed_dim // cfg.num_heads
+            self.rel_pos_h = nn.Parameter(
+                torch.zeros(2 * rel_pos[0] - 1, hd, device=device))
+            self.rel_pos_w = nn.Parameter(
+                torch.zeros(2 * rel_pos[1] - 1, hd, device=device))
 
     def forward(self, x):
+        if self.rel_pos is not None:
+            return self.proj(self._relpos_attention(self.qkv(x)))
         attend = packed_attention if self.use_kernel else \
             packed_attention_reference
         return self.proj(attend(self.qkv(x), self.heads))
+
+    def _relpos_attention(self, qkv):
+        B, T, C3 = qkv.shape
+        gh, gw = self.rel_pos
+        n = self.heads
+        q = qkv[..., :C3 // 3].reshape(B, gh, gw, n, -1).to(torch.float32)
+        rel_h = torch.einsum("bhwnc,hkc->bnhwk", q,
+                             _rel_table(self.rel_pos_h, gh))
+        rel_w = torch.einsum("bhwnc,wkc->bnhwk", q,
+                             _rel_table(self.rel_pos_w, gw))
+        attend = relpos_attention if self.use_kernel else \
+            relpos_attention_reference
+        return attend(qkv, rel_h.reshape(B, n, T, gh).contiguous(),
+                      rel_w.reshape(B, n, T, gw).contiguous(), n)
 
 
 class FFN(nn.Module):
     def __init__(self, cfg: VitPoseConfig, device=None):
         super().__init__()
         hidden = int(cfg.embed_dim * cfg.mlp_ratio)
-        self.approx = cfg._gelu_approx
+        # the exact GELU for a config without the property (ViTDet's)
+        self.approx = getattr(cfg, "_gelu_approx", False)
         self.layers = nn.ModuleList([
             nn.Sequential(_dense(cfg, cfg.embed_dim, hidden, device)),
             _dense(cfg, hidden, cfg.embed_dim, device)])
@@ -100,15 +168,40 @@ class FFN(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: VitPoseConfig, device=None):
+    """A pre-norm ViT block. By default (ViTPose) it takes (B, N, C) tokens.
+    With ``window`` (a window side) or ``rel_pos`` (the attention grid,
+    ``Attention``'s option) it is ViTDet's block on a (B, H, W, C) map: the
+    normed map attends in ``window`` x ``window`` windows (zero-padded to
+    whole windows, not masked, cropped back before the residual add) or
+    globally, each window block counting the tokens its padding adds as
+    ``vit.window_pad_tokens``. ``norm`` is the class of its two norms."""
+
+    def __init__(self, cfg: VitPoseConfig, device=None, window: int = 0,
+                 rel_pos=None, norm=FusedLayerNorm):
         super().__init__()
-        self.ln1 = FusedLayerNorm(cfg.embed_dim, cfg.ln_eps, device)
-        self.attn = Attention(cfg, device)
-        self.ln2 = FusedLayerNorm(cfg.embed_dim, cfg.ln_eps, device)
+        self.ln1 = norm(cfg.embed_dim, cfg.ln_eps, device)
+        self.attn = Attention(cfg, device, rel_pos)
+        self.ln2 = norm(cfg.embed_dim, cfg.ln_eps, device)
         self.ffn = FFN(cfg, device)
+        self.window = window
 
     def forward(self, x):
+        if self.window or self.attn.rel_pos is not None:
+            return self._map_forward(x)
         x = x + self.attn(self.ln1(x))
+        return x + self.ffn(self.ln2(x))
+
+    def _map_forward(self, x):
+        B, H, W, C = x.shape
+        y = self.ln1(x)
+        if self.window:
+            y, padded = window_partition(y, self.window)
+            count("vit.window_pad_tokens", B * (padded[0] * padded[1] - H * W))
+        n, h, w, _ = y.shape
+        y = self.attn(y.reshape(n, h * w, C)).reshape(n, h, w, C)
+        if self.window:
+            y = window_unpartition(y, self.window, padded, (H, W))
+        x = x + y
         return x + self.ffn(self.ln2(x))
 
 

@@ -51,10 +51,10 @@ class PerceptionBackend(Protocol):
 
 
 class TorchPerception:
-    """Swin Mask R-CNN + ViTPose + ResNet-152 on one device: the card unless
-    ``device`` says otherwise. ``flip_test`` (the parity default) averages
-    the heatmaps of each crop and its mirror; the fast serving tier turns it
-    off for a single pass.
+    """Swin Mask R-CNN (or ViTDet-H) + ViTPose + ResNet-152 on one device:
+    the card unless ``device`` says otherwise. ``flip_test`` (the parity
+    default) averages the heatmaps of each crop and its mirror; the fast
+    serving tier turns it off for a single pass.
 
     With ``mesh`` (``core/mesh.py``) one copy of the three models lives on
     each device of the mesh, and ``detect``, ``pose`` and ``classify`` shard
@@ -72,9 +72,11 @@ class TorchPerception:
         self.pose_model = pose_model
         self.id_model = id_model
         self.max_det = max_det
-        # keep-ratio resize target of the detector input (mmdet's 800; the
-        # fast tier's 640)
-        self.det_target = det_target
+        # a detector that states a square input (ViTDet's 1024) takes the
+        # keep-ratio resize that fits it, padded to it; else the keep-ratio
+        # target (mmdet's 800; the fast tier's 640), padded to /32
+        self.det_square = getattr(detector_model, "square", None)
+        self.det_target = self.det_square or det_target
         self.flip_test = flip_test
         self._replicas = put_replicated(
             (detector_model, pose_model, id_model), self.mesh)
@@ -116,8 +118,9 @@ class TorchPerception:
 
     def _detect(self, models, frames):
         with span("detector.input"):
-            padded, scale, _ = detector_input_batch(self._rgb(frames),
-                                                    target=self.det_target)
+            padded, scale, _ = detector_input_batch(
+                self._rgb(frames), target=self.det_target,
+                square=self.det_square)
         boxes, scores, valid = detect_frames(models[0], padded)
         boxes = boxes / scale
         k = min(self.max_det, boxes.shape[1])

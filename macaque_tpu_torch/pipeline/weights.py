@@ -86,23 +86,47 @@ def serving_tier(int8=None, serving=None, fast=None,
     return ServingTier(int8, serving, not fast, det_target)
 
 
+def build_detector(kind: str = "swin", device=None, dtype=None, *,
+                   serving: bool = False, config=None, vit=None):
+    """The detector ``kind`` in inference mode on ``device``: "swin", the
+    reference's Swin-S Mask R-CNN, or "vitdet", ViTDet-H
+    (``nn/vitdet.py``, K7 for its attention on the card). ``dtype``
+    defaults to bf16 on the card and float32 on the CPU; ``config`` (a
+    ``DetectorConfig``: budgets, head widths, a Swin backbone) defaults to
+    mmdet's test budgets, or the serving tier's with ``serving``; ``vit``
+    (a ``ViTDetConfig``) to ViTDet-H's widths."""
+    from macaque_tpu_torch.nn import DetectorConfig, SwinMaskRCNN
+    from macaque_tpu_torch.nn.swin import SwinConfig
+    from macaque_tpu_torch.nn.vitdet import ViTDetConfig, ViTDetMaskRCNN
+
+    if kind not in ("swin", "vitdet"):
+        raise ValueError(f"no detector {kind!r}; 'swin' or 'vitdet'")
+    device = resolve_device(device)
+    if dtype is None:
+        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    if config is None:
+        kw = dict(swin=SwinConfig(compute_dtype=dtype), compute_dtype=dtype)
+        config = DetectorConfig.serving(**kw) if serving else DetectorConfig(**kw)
+    if kind == "swin":
+        return SwinMaskRCNN(config, device=device)
+    if vit is None:
+        vit = ViTDetConfig(compute_dtype=dtype, use_pallas_attention=device.type == "cuda")
+    return ViTDetMaskRCNN(config, vit, device=device)
+
+
 def build_torch_perception(weights_dir: str, device=None, *, int8=None,
                            serving=None, fast=None, det_target=None):
     """The three models from their checkpoints, in the serving tier the
     arguments (or the environment) select, wrapped in a TorchPerception."""
     from macaque_tpu_torch.nn import (
-        DetectorConfig, ResNetClassifier, ResNetConfig, SwinMaskRCNN,
-        ViTPose, VitPoseConfig)
+        ResNetClassifier, ResNetConfig, ViTPose, VitPoseConfig)
     from macaque_tpu_torch.nn.quant import quantize_vitpose_
-    from macaque_tpu_torch.nn.swin import SwinConfig
     from macaque_tpu_torch.pipeline.perception import TorchPerception
 
     device = resolve_device(device)
     tier = serving_tier(int8, serving, fast, det_target)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    det_kw = dict(swin=SwinConfig(compute_dtype=dtype), compute_dtype=dtype)
-    det = SwinMaskRCNN(DetectorConfig.serving(**det_kw) if tier.serving
-                       else DetectorConfig(**det_kw), device=device)
+    det = build_detector("swin", device, dtype, serving=tier.serving)
     # the packed attention kernel on the card, as the JAX package sets its
     # Pallas kernel on the TPU
     pose = ViTPose(VitPoseConfig(compute_dtype=dtype,

@@ -13,8 +13,8 @@ import torch
 from macaque_tpu_torch import kernels
 from macaque_tpu_torch.nn.attention import (
     attention, attention_reference, fused_attention, fused_attention_blocked,
-    packed_attention, packed_attention_reference, window_attention,
-    window_attention_reference)
+    packed_attention, packed_attention_reference, relpos_attention,
+    relpos_attention_reference, window_attention, window_attention_reference)
 from macaque_tpu_torch.nn.int8 import (
     quant_int8_matmul, quant_int8_matmul_reference, quant_int8_matmul_split,
     quantize_rows, quantize_rows_reference)
@@ -449,6 +449,57 @@ def test_attention_refuses_what_it_was_not_built_for(card):
                   t[:, :64].contiguous())                       # N = 64
     with pytest.raises(ValueError):
         attention(t, t, t[:1])                                  # shapes differ
+
+
+def _relpos_inputs(card, rng, B, g, heads=16, d=80):
+    """qkv (B, g^2, 3 heads d) and the two factor tables (B, heads, g^2, g)
+    at the scale the random ViTDet-H reads: logits of about 1, rel-pos
+    terms of about 0.3."""
+    T = g * g
+    qkv = _bf16(card, rng, B, T, 3 * heads * d)
+    rel = [torch.from_numpy(rng.normal(size=(B, heads, T, g)) * 0.3)
+           .to(card, torch.float32) for _ in range(2)]
+    return qkv, rel[0], rel[1]
+
+
+# K7 at ViTDet-H's two shapes: the 14 x 14 windows of a 32-frame chunk's
+# window block (800 windows) and the 64 x 64 map of its global blocks (two
+# frames: the plain version's float32 scores of a whole chunk would not fit)
+@pytest.mark.parametrize("B, g", [(800, 14), (2, 64)])
+def test_relpos_attention_kernel(card, B, g):
+    qkv, rh, rw = _relpos_inputs(card, np.random.default_rng(40 + g), B, g)
+    n = kernels.LAUNCHES["relpos_attention"]
+    with torch.no_grad():
+        got = relpos_attention(qkv, rh, rw, 16)
+        want = torch.cat([relpos_attention_reference(qkv[i:i + 100], rh[i:i + 100],
+                                                     rw[i:i + 100], 16)
+                          for i in range(0, B, 100)])
+    _close(got, want)
+    assert kernels.LAUNCHES["relpos_attention"] == n + 1
+    # the rel-pos terms move the output far beyond the tolerance
+    zero = relpos_attention(qkv, torch.zeros_like(rh), torch.zeros_like(rw), 16)
+    assert (zero.float() - want.float()).abs().max() > 2 * 2.0 ** -6 * \
+        want.float().abs().max()
+
+
+def test_relpos_attention_refuses_what_it_was_not_built_for(card):
+    qkv, rh, rw = _relpos_inputs(card, np.random.default_rng(41), 2, 14)
+    with pytest.raises(TypeError):
+        relpos_attention(qkv.float(), rh, rw, 16)                # float32
+    with pytest.raises(ValueError):
+        relpos_attention(qkv, rh, rw, 8)                         # d = 160
+    with pytest.raises(ValueError):
+        relpos_attention(qkv[:, :169].contiguous(), rh[:, :, :169, :13].contiguous(),
+                         rw[:, :, :169, :13].contiguous(), 16)   # grid 13
+    with pytest.raises(ValueError):
+        relpos_attention(qkv, rh.half(), rw, 16)                 # table dtype
+    with pytest.raises(ValueError):
+        relpos_attention(qkv, rh[:1], rw, 16)                    # table shape
+
+
+def test_relpos_attention_resident_blocks(card):
+    assert kernels.resident_blocks("relpos_attention", 14) >= 2
+    assert kernels.resident_blocks("relpos_attention", 64) >= 2
 
 
 def _swin_block_case(card, seed, C, images, grid, masked):
@@ -949,6 +1000,7 @@ def _grad_cases(card):
     lin = Int8Linear(1280, 256, device=card)
     lin.load_state_dict({"weight_q": wq, "wscale": ws, "bias": b})
     sw = _swin_block_case(card, 31, 96, 1, (2, 2), False)
+    rqkv, rh, rw = _relpos_inputs(card, rng, 1, 14)
     return [
         ("packed_attention", "packed_attention",
          lambda rg: packed_attention(leaf(qkv, rg), 16)),
@@ -967,6 +1019,8 @@ def _grad_cases(card):
         ("Int8Linear", "quant_int8_matmul", lambda rg: lin(leaf(x, rg))),
         ("fused_swin_block", "swin_block",
          lambda rg: fused_swin_block(leaf(sw[0], rg), *sw[1:])),
+        ("relpos_attention", "relpos_attention",
+         lambda rg: relpos_attention(leaf(rqkv, rg), rh, rw, 16)),
     ]
 
 

@@ -323,9 +323,73 @@ def test_launch_counts_into_launches_and_the_record(monkeypatch):
     before = dict(kernels.LAUNCHES)
     with record() as rec:
         kernels.launch("roi_align_windowed", "roi_align_windowed", "cuda:0")
-    assert set(kernels.LAUNCHES) == set(before) and len(before) == 7
+    assert set(kernels.LAUNCHES) == set(before) and len(before) == 8
     assert kernels.LAUNCHES["roi_align_windowed"] == \
         before["roi_align_windowed"] + 1
     assert rec == {"launches.roi_align_windowed": 1}
     kernels.reset_launches()
     assert not any(kernels.LAUNCHES.values())
+
+
+def test_relpos_attention_counts_its_launches(monkeypatch):
+    """K7's launches reach ``launches.relpos_attention`` in the record."""
+    class Lib:
+        def __getattr__(self, entry):
+            return lambda *args: 0
+
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: nullcontext())
+    monkeypatch.setattr(kernels, "library", Lib)
+    monkeypatch.setattr(kernels, "current_stream", lambda d: None)
+    monkeypatch.setattr(kernels, "LAUNCHES", dict(kernels.LAUNCHES))
+    with record() as rec:
+        for _ in range(3):
+            kernels.launch("relpos_attention", "relpos_attention", "cuda:0")
+    assert rec == {"launches.relpos_attention": 3}
+    assert kernels.LAUNCHES["relpos_attention"] >= 3
+
+
+def _vitdet_perception():
+    """The tiny perception above with a tiny ViTDet (a 4 x 4 map, 3 x 3
+    windows, blocks 1 and 3 global) as its detector, made by
+    ``build_detector``; the perception reads its square input from it."""
+    from macaque_tpu_torch.nn import DetectorConfig
+    from macaque_tpu_torch.nn.vitdet import ViTDetConfig
+    from macaque_tpu_torch.pipeline.perception import TorchPerception
+    from macaque_tpu_torch.pipeline.weights import build_detector
+
+    base = _perception()
+    torch.manual_seed(0)
+    det = build_detector(
+        "vitdet", "cpu", torch.float32,
+        config=DetectorConfig(fpn_channels=16, rpn_nms_pre=100, rpn_max=40,
+                              rcnn_max=10, rcnn_roi_topk=40, rcnn_roi_chunk=16),
+        vit=ViTDetConfig(img_size=64, embed_dim=32, depth=4, num_heads=2,
+                         window=3, global_blocks=(1, 3), pretrain_grid=3))
+    with torch.no_grad():
+        det.roi_head.bbox_head.fc_cls.bias[0] += 6.0
+    p = TorchPerception(det, base.pose_model, base.id_model, max_det=D,
+                        device="cpu")
+    assert (p.det_target, p.det_square) == (64, 64)
+    return p
+
+
+def test_the_vitdet_trunk_spans_and_window_padding(tmp_path):
+    """ViTDet's ``detector.vit`` and ``detector.pyramid`` sit inside
+    ``detector.trunk``, once a chunk, and ``vit.window_pad_tokens`` counts
+    the tokens the window blocks add: 6 x 6 - 4 x 4 = 20 a frame in each of
+    the 2 window blocks."""
+    frames = np.random.default_rng(1).integers(0, 256, (2 * B, H, W, 3),
+                                               dtype=np.uint8)
+    store = Store(frames)
+    rec = process_camera(store, str(tmp_path), store.ftimes,
+                         _vitdet_perception(), chunk=B, redo=True,
+                         prefetch=False)
+    assert rec["detector.trunk_calls"] == 2
+    for name in ("detector.vit", "detector.pyramid"):
+        assert rec[f"detector.trunk/{name}"] == pytest.approx(rec[name])
+        assert rec[name] > 0
+    assert rec["detector.vit"] + rec["detector.pyramid"] <= rec["detector.trunk"]
+    assert rec["vit.window_pad_tokens"] == 2 * B * 2 * 20
+    with open(tmp_path / "alldata.json") as f:
+        rows = json.load(f)
+    assert len(rows) == 2 * B and any(rows)
